@@ -1,0 +1,60 @@
+"""Carry state across from the reference package ``repro``.
+
+Plain NumPy in, tensors out: the parity tests convert the reference's
+arrays with ``np.asarray`` and hand them here, so both packages run on the
+same grids, fields, planes and schedules.  This module imports nothing of
+the reference package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.engine import schedule_tensors
+
+
+def planes_from_reference(planes: np.ndarray, device="cuda") -> torch.Tensor:
+    """uint32 bit planes [n_bits, n_lanes] -> the port's int32 planes
+    (the same bits) on ``device``."""
+    arr = np.ascontiguousarray(np.asarray(planes, np.uint32))
+    return torch.from_numpy(arr.view(np.int32).copy()).to(
+        resolve_device(device))
+
+
+def planes_to_reference(planes: torch.Tensor) -> np.ndarray:
+    """The port's int32 planes -> uint32 host planes (inverse of
+    :func:`planes_from_reference`)."""
+    return np.ascontiguousarray(planes.cpu().numpy()).view(np.uint32)
+
+
+def schedule_from_reference(cmp_cols, cmp_key, w_cols, w_key,
+                            device="cuda") -> tuple[torch.Tensor, ...]:
+    """A reference pass table (int32 columns, uint32 keys, [P, K]) ->
+    four int32 tensors on ``device``, as ``ops.run_schedule`` takes
+    them."""
+    return schedule_tensors(np.asarray(cmp_cols, np.int32),
+                            np.asarray(cmp_key, np.uint32),
+                            np.asarray(w_cols, np.int32),
+                            np.asarray(w_key, np.uint32),
+                            resolve_device(device))
+
+
+def fields_from_reference(F: dict, device="cuda") -> dict:
+    """The reference's face-conductance fields (any leading batch dims)
+    -> float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+            for k, v in F.items()}
+
+
+def case_from_reference(leaves, device="cuda") -> tuple:
+    """The leaves of the reference's ``feedback.assemble_case``
+    (dyn, leak0, refresh0, logic_mask, F, cap3) -> the same leaves as
+    float32 tensors on ``device``, ready for the port's ``replay_cases``.
+    """
+    dev = resolve_device(device)
+    dyn, l0, r0, lm, F, cap3 = leaves
+    as_t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
+    return (as_t(dyn), as_t(l0), as_t(r0), as_t(lm),
+            fields_from_reference(F, dev), as_t(cap3))

@@ -1,0 +1,93 @@
+// Face-conductance thermal stencil  y = G T  for Hopper (sm_90a).
+//
+// Replaces the TPU kernel apply_operator_fields_kernel (body _field_kernel)
+// in src/repro/kernels/thermal_stencil/kernel.py.  Per cell of an
+// [L, NY, NX] grid (optionally batched [B, L, NY, NX]):
+//
+//   y = gx_lf (T - T_left)  + gx_rt (T - T_right)
+//     + gy_up (T - T_up)    + gy_dn (T - T_down)
+//     + gz_up (T - T_above) + gz_dn (T - T_below) + g_pkg T
+//
+// Neighbours past an edge are the cell itself (adiabatic: zero
+// difference); a zero face conductance is a void face.
+//
+// What bounds it on the H100: bytes.  Each cell reads T and seven fields
+// and writes y, 36 bytes against 14 flops, far below the card's
+// flop/byte balance.  The design spends no extra traffic: one thread owns
+// one (b, y, x) column and walks its L <= 9 layers, so the vertical
+// neighbours of layer l are the registers that held layers l-1 and l+1;
+// the four lateral neighbours are clamped-index loads that neighbouring
+// threads also read, so L1/L2 serve them and device memory sees each
+// input about once.  Threads of a warp own adjacent x, so every load and
+// the store are coalesced.  Fusing the PCG dot products into this pass is
+// later work.
+//
+// The terms are summed in the reference's order and the build uses
+// -fmad=false, so the result equals the plain PyTorch version
+// (ops.apply_operator_fields_plain) bit for bit on the card.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__global__ void stencil_fields(const float* __restrict__ T,
+                               const float* __restrict__ gx_lf,
+                               const float* __restrict__ gx_rt,
+                               const float* __restrict__ gy_up,
+                               const float* __restrict__ gy_dn,
+                               const float* __restrict__ gz_up,
+                               const float* __restrict__ gz_dn,
+                               const float* __restrict__ g_pkg,
+                               float* __restrict__ y, int n_batch,
+                               int n_layers, int ny, int nx) {
+  const long long plane = (long long)ny * nx;
+  const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= (long long)n_batch * plane) return;
+  const long long b = col / plane;
+  const long long yx = col - b * plane;
+  const int iy = (int)(yx / nx);
+  const int ix = (int)(yx - (long long)iy * nx);
+  // clamped lateral neighbour offsets inside one layer (edge replication)
+  const long long o_lf = (long long)iy * nx + (ix > 0 ? ix - 1 : ix);
+  const long long o_rt = (long long)iy * nx + (ix < nx - 1 ? ix + 1 : ix);
+  const long long o_up = (long long)(iy > 0 ? iy - 1 : iy) * nx + ix;
+  const long long o_dn = (long long)(iy < ny - 1 ? iy + 1 : iy) * nx + ix;
+
+  const long long base = b * n_layers * plane;
+  float t_above = T[base + yx];   // layer -1 replicates layer 0
+  float t = t_above;
+  for (int l = 0; l < n_layers; ++l) {
+    const long long off = base + (long long)l * plane;
+    const long long i = off + yx;
+    const float t_below = (l + 1 < n_layers) ? T[i + plane] : t;
+    float acc = gx_lf[i] * (t - T[off + o_lf]);
+    acc = acc + gx_rt[i] * (t - T[off + o_rt]);
+    acc = acc + gy_up[i] * (t - T[off + o_up]);
+    acc = acc + gy_dn[i] * (t - T[off + o_dn]);
+    acc = acc + gz_up[i] * (t - t_above);
+    acc = acc + gz_dn[i] * (t - t_below);
+    acc = acc + g_pkg[i] * t;
+    y[i] = acc;
+    t_above = t;
+    t = t_below;
+  }
+}
+
+}  // namespace
+
+extern "C" int thermal_stencil_fields(const void* T, const void* gx_lf,
+                                      const void* gx_rt, const void* gy_up,
+                                      const void* gy_dn, const void* gz_up,
+                                      const void* gz_dn, const void* g_pkg,
+                                      void* y, int n_batch, int n_layers,
+                                      int ny, int nx, void* stream) {
+  const long long n_cols = (long long)n_batch * ny * nx;
+  const int threads = 256;
+  const long long blocks = (n_cols + threads - 1) / threads;
+  stencil_fields<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)T, (const float*)gx_lf, (const float*)gx_rt,
+      (const float*)gy_up, (const float*)gy_dn, (const float*)gz_up,
+      (const float*)gz_dn, (const float*)g_pkg, (float*)y, n_batch, n_layers,
+      ny, nx);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,200 @@
+"""PyTorch port vs the JAX reference: the closed-loop DRAM-stack replay.
+
+Cases for the paper trio are assembled by both packages from the same
+64-element AP traces and replayed as one batch (the port on the CPU, its
+plain stencil).  The float32 CG sums in another order on each side, so
+temperatures agree to a tolerance: peak_C and min_C within 0.05 °C (the
+Picard residual bar), the DTM duty within 1e-3; convergence and every
+per-workload verdict (DRAM time above 85 °C zero or not) must be equal.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import cosim as jcosim
+from repro.policy import base as jpolicy
+from repro.stack import feedback as jfb
+from repro.stack.spec import dram_on_logic as j_dram_on_logic
+from repro.workloads import registry as jregistry
+from repro_torch import interop
+from repro_torch.core import cosim as tcosim
+from repro_torch.policy import base as tpolicy
+from repro_torch.stack import feedback as tfb
+from repro_torch.stack.spec import dram_on_logic as t_dram_on_logic
+
+TRIO = ("dmm", "fft", "bs")
+GRID_N, N_INT = 8, 8
+REPLAY = dict(steps_per_interval=1, n_cg=25)
+PEAK_ATOL_C = 0.05          # the Picard residual bar
+THROTTLE_ATOL = 1e-3
+#: Wider bound for a trajectory whose DTM duty sits inside the ramp
+#: interval after interval: the sampled controller multiplies a float32
+#: difference by ~7x per interval there (ROADMAP Queue 3 records the input
+#: and the 0.059 °C delta measured on the last interval).
+RAMP_PEAK_ATOL_C = 0.1
+
+
+@pytest.fixture(scope="module")
+def ref_counters():
+    """The reference's 64-element trio captures (the port's captures are
+    held bit-identical to these in test_torch_engine_workloads.py)."""
+    return {w: jregistry.trace_counters(w, 64) for w in TRIO}
+
+
+def _cases(pkg_fb, pkg_cosim, spec, counters, **kw):
+    cases = []
+    for w in TRIO:
+        dp = pkg_cosim.comparable_design_point(w)
+        wl = pkg_cosim.M.WORKLOADS[w]
+        pair = (("ap", pkg_cosim.trace_from_counters(counters[w], N_INT,
+                                                     f"ap:{w}")),
+                ("simd", pkg_cosim.simd_phase_trace(wl, dp, N_INT)))
+        for machine, trace in pair:
+            cases.append((f"{w}/{machine}", pkg_fb.assemble_case(
+                dp, w, machine, spec, pkg_fb.PAPER_STACK, GRID_N, trace,
+                GRID_N // 4, **kw)))
+    return cases
+
+
+def _assert_reports_close(ref: dict, got: dict, labels, wide=()):
+    for label in labels:
+        r, g = ref[label], got[label]
+        atol = RAMP_PEAK_ATOL_C if label in wide else PEAK_ATOL_C
+        np.testing.assert_allclose(g.peak_C, r.peak_C, rtol=0, atol=atol,
+                                   err_msg=label)
+        np.testing.assert_allclose(g.min_C, r.min_C, rtol=0, atol=atol,
+                                   err_msg=label)
+        np.testing.assert_allclose(g.throttle, r.throttle, rtol=0,
+                                   atol=THROTTLE_ATOL, err_msg=label)
+        assert g.converged == r.converged, label
+        assert (g.dram_time_above_limit_s > 0) \
+            == (r.dram_time_above_limit_s > 0), label
+        assert g.peak_C.shape == r.peak_C.shape
+        assert g.base_refresh_W == r.base_refresh_W
+
+
+def test_assembled_cases_bit_identical(ref_counters):
+    jcases = _cases(jfb, jcosim, j_dram_on_logic(2), ref_counters)
+    tcases = _cases(tfb, tcosim, t_dram_on_logic(2), ref_counters,
+                    device="cpu")
+    for (jl, jleaves), (tl, tleaves) in zip(jcases, tcases):
+        assert jl == tl
+        for a, b in zip(jleaves[:4], tleaves[:4]):      # host NumPy
+            np.testing.assert_array_equal(b, np.asarray(a), jl)
+        for k in jleaves[4]:
+            np.testing.assert_array_equal(tleaves[4][k].numpy(),
+                                          np.asarray(jleaves[4][k]))
+        np.testing.assert_array_equal(tleaves[5].numpy(),
+                                      np.asarray(jleaves[5]))
+
+
+def test_replay_cases_matches_reference(ref_counters):
+    jcases = _cases(jfb, jcosim, j_dram_on_logic(2), ref_counters)
+    fb_j, fb_t = jfb.FeedbackParams(), tfb.FeedbackParams()
+    dt = 0.25 / N_INT
+    ref = jfb.replay_cases(jcases, j_dram_on_logic(2), fb_j, GRID_N, dt,
+                           **REPLAY)
+    carried = [(label, interop.case_from_reference(
+        [leaves[0], leaves[1], leaves[2], leaves[3],
+         {k: np.asarray(v) for k, v in leaves[4].items()},
+         np.asarray(leaves[5])], "cpu")) for label, leaves in jcases]
+    got = tfb.replay_cases(carried, t_dram_on_logic(2), fb_t, GRID_N, dt,
+                           device="cpu", **REPLAY)
+    labels = [label for label, _ in jcases]
+    _assert_reports_close(ref, got, labels)
+    # the trio's verdict at this resolution, as the reference has it
+    for w in TRIO:
+        assert got[f"{w}/ap"].dram_time_above_limit_s == 0.0
+    # the port's own assembly gives the same inputs, hence the same replay
+    own = tfb.replay_cases(
+        _cases(tfb, tcosim, t_dram_on_logic(2), ref_counters, device="cpu"),
+        t_dram_on_logic(2), fb_t, GRID_N, dt, device="cpu", **REPLAY)
+    for label in labels:
+        np.testing.assert_array_equal(own[label].peak_C, got[label].peak_C)
+
+
+@pytest.mark.parametrize("fb_kw", [{}, {"dtm_trip_C": 48.0}],
+                         ids=["default", "trip48"])
+def test_run_stack_cosim_matches_reference(fb_kw):
+    """The whole path — capture, assembly, replay — on one workload; the
+    48 °C trip makes the DTM ramp engage on both machines.  Under the
+    default 95 °C trip the SIMD logic swings through the ramp every
+    interval, which takes the wider RAMP_PEAK_ATOL_C."""
+    kw = dict(workloads=("dmm",), n_dram=1, grid_n=8, n_intervals=12,
+              steps_per_interval=1, n_cg=30)
+    ref = jfb.run_stack_cosim(fb=jfb.FeedbackParams(**fb_kw), **kw)
+    got = tfb.run_stack_cosim(fb=tfb.FeedbackParams(**fb_kw), device="cpu",
+                              **kw)
+    assert got["interval_s"] == ref["interval_s"]
+    assert got["design_points"]["dmm"].__dict__ \
+        == ref["design_points"]["dmm"].__dict__
+    _assert_reports_close({f"dmm/{m}": ref["dmm"][m] for m in ("ap", "simd")},
+                          {f"dmm/{m}": got["dmm"][m] for m in ("ap", "simd")},
+                          ["dmm/ap", "dmm/simd"],
+                          wide=() if fb_kw else ("dmm/simd",))
+    if fb_kw:
+        assert (got["dmm"]["ap"].throttle < 1.0).any()
+
+
+def test_replay_is_batch_of_single_replays():
+    """closed_loop_replay is the B = 1 case of closed_loop_batch."""
+    from repro_torch.core import thermal
+    rng = np.random.default_rng(2)
+    spec = t_dram_on_logic(1)
+    grid = thermal.Grid(die_w=2.3e-3, ny=6, nx=6, spec=spec, margin=1)
+    F, cap = grid.fields("cpu"), grid.capacity_field("cpu")
+    shape, B = tuple(cap.shape), 2
+    dyn = torch.from_numpy(rng.uniform(0, 0.3, (B, 3) + shape)
+                           .astype(np.float32))
+    l0 = torch.full(shape, 1e-3)
+    r0 = torch.zeros(shape)
+    r0[list(spec.dram_layers)] = 2e-3
+    lm = torch.from_numpy(spec.layer_mask("logic").astype(np.float32))
+    kw = dict(fb=tfb.FeedbackParams(dtm_trip_C=46.0), die_n=6,
+              n_die=spec.n_die_layers, margin=1, n_cg=10)
+    batch = tfb.closed_loop_batch(
+        dyn, l0.expand(B, *shape), r0.expand(B, *shape),
+        lm.expand(B, -1), {k: v.expand(B, *shape) for k, v in F.items()},
+        cap.expand(B, *shape), 0.01, **kw)
+    for b in range(B):
+        one = tfb.closed_loop_replay(dyn[b], l0, r0, lm, F, cap, 0.01, **kw)
+        for x, y in zip(one, batch):
+            torch.testing.assert_close(x, y[b], rtol=1e-6, atol=1e-5)
+
+
+def test_ramp_policy_matches_reference():
+    rng = np.random.default_rng(4)
+    layer_T = (40 + 80 * rng.random((5, 4))).astype(np.float32)
+    mask = np.array([[1, 0, 0, 0], [0, 1, 1, 0], [1, 1, 1, 1],
+                     [0, 0, 0, 0], [0, 0, 0, 1]], np.float32)
+    for trip, ramp, floor in ((95.0, 10.0, 0.25), (60.0, 0.0, 0.4),
+                              (math.inf, 10.0, 0.25)):
+        got = tpolicy.ramp_duty(tpolicy.masked_hot(
+            torch.from_numpy(layer_T), torch.from_numpy(mask)),
+            trip, ramp, floor)
+        for b in range(5):
+            want = jpolicy.ramp_duty(jpolicy.masked_hot(
+                jnp.asarray(layer_T[b]), jnp.asarray(mask[b])),
+                trip, ramp, floor)
+            assert float(got[b]) == float(want), (trip, ramp, b)
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        tfb.FeedbackParams(policy=tpolicy.Policy())
+    with pytest.raises(NotImplementedError):
+        tfb.FeedbackParams(faults=object())
+    with pytest.raises(ValueError):
+        tfb.FeedbackParams(dtm_floor=0.0)
+    for kw in ({"solver": "mg"}, {"n_shards": 2}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tfb.run_stack_cosim(device="cpu", **kw)
+    x = torch.zeros((1, 2, 2, 2))
+    with pytest.raises(NotImplementedError, match="dt_scale"):
+        tfb.closed_loop_replay(x, x[0], x[0], torch.zeros(2),
+                               {}, x[0], 0.1, fb=tfb.FeedbackParams(),
+                               die_n=2, n_die=1, dt_scale=np.ones(1))

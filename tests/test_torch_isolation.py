@@ -1,0 +1,63 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor the
+reference package ``repro``, and its entry points never fall back to the
+CPU on their own — without a card, a call that does not ask for
+``device="cpu"`` raises."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print(len(names), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 25          # every module of the slice was imported
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    src = (ROOT / "chip_smoke.py").read_text()
+    for word in ("import jax", "from jax", "import repro\n", "from repro ",
+                 "from repro.", "import repro."):
+        assert word not in src, word
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    from repro_torch.core.engine import APEngine
+    from repro_torch.core.thermal import Grid
+    from repro_torch.stack import feedback
+    with pytest.raises(RuntimeError, match="cuda"):
+        feedback.run_stack_cosim(workloads=("dmm",), n_dram=1, grid_n=4,
+                                 n_intervals=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        APEngine(32, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Grid(die_w=1e-3, ny=4, nx=4).fields()
+    with pytest.raises(RuntimeError, match="cuda"):
+        Grid(die_w=1e-3, ny=4, nx=4).capacity_field()
