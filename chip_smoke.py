@@ -22,8 +22,36 @@ these phases, each printing one line with its result and seconds:
    0.1 °C of the JAX reference's value; both kernels' launch counters must
    have risen during this run;
 6. a profile (``torch.profiler``): each kernel's device time per launch
-   at the main path's shapes, and the device-busy share and top kernels of
-   a 4-interval window of the main path's replay.
+   at the main path's shapes and at the large ones, and the device-busy
+   share and top kernels of a 4-interval window of the main path's replay;
+7. the red-black line-smoother kernel against its plain version, bit for
+   bit and both colours, at the mg replay's shapes (6 x 7 x 36 x 36 with
+   ``d_extra = cap3/dt``, and its 18^2 level) and at the 256^2 solver grid
+   (7 x 384 x 384), timed as in phase 2;
+8. the uniform-per-layer stencil kernel against its plain version, bit for
+   bit, at the paper stack's AP domain (5 x 384 x 384), timed the same way;
+9. the steady solver comparison at 256^2 (7 x 384 x 384,
+   ``bench_thermal.py``'s shoot-out): pcg, mg and mgcg — iterations,
+   seconds, maximum temperature and true relative residual; mg and mgcg
+   within 1e-3 °C of pcg with a residual at most ``HEALTH_RTOL`` (pcg's
+   is printed: at this size it ends above that bar in the JAX reference
+   too), and each maximum within 0.05 °C of the JAX reference's;
+10. the paper's §4 experiment, ``thermal_comparison(grid_ap=256,
+    grid_simd=64)``: the paper's bands, AP OK / SIMD BLOCKED, and each
+    layer peak within 0.05 °C of the JAX reference's;
+11. the main path with the multigrid inner solve, ``run_stack_cosim(...,
+    solver="mg")`` at phase 5's sizes: converged, AP OK / SIMD BLOCKED,
+    each DRAM peak within 0.1 °C of the JAX reference's ``solver="mg"``
+    value, its seconds beside phase 5's, and the device-busy share of a
+    4-interval window;
+12. the legacy implicit transient, ``transient_solve_implicit`` with
+    ``solver="pcg"`` (the uniform stencil) and ``"mg"`` on the paper
+    stack's 256^2 AP die: each final maximum within 0.05 °C of the JAX
+    reference's.
+
+Phases 5 and 9-12 each set every kernel's launch counter to 0 just before
+they drive their path and read the counters just after; a kernel of the
+path that was not launched fails the phase.
 
 The line before the last is a JSON object of per-kernel measurements; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -50,6 +78,26 @@ REFERENCE_DRAM_PEAK_C = {
     ("bs", "ap"): 52.6612, ("bs", "simd"): 108.9859,
 }
 PEAK_TOL_C = 0.1
+
+#: JAX reference values for phases 9-12, each from ``repro`` run on the
+#: CPU with the arguments of its phase:
+#: ``thermal.steady_state_stats(power, grid, solver=s)`` max [°C] (phase 9);
+REFERENCE_STEADY_MAX_C = {"pcg": 74.5890, "mg": 74.5891, "mgcg": 74.5891}
+#: ``floorplan.thermal_comparison(grid_ap=256, grid_simd=64,
+#: workload="dmm")`` per-layer peaks [°C] (phase 10);
+REFERENCE_PAPER_PEAK_C = {"ap": (51.6090, 51.4396, 51.1011, 50.5940),
+                          "simd": (130.2451, 125.4291, 115.5098, 99.8042)}
+#: ``feedback.run_stack_cosim(("dmm", "fft", "bs"), n_dram=2, grid_n=24,
+#: n_intervals=48, solver="mg")`` maximum DRAM peak [°C] (phase 11);
+REFERENCE_MG_DRAM_PEAK_C = {
+    ("dmm", "ap"): 53.8398, ("dmm", "simd"): 118.6749,
+    ("fft", "ap"): 57.6311, ("fft", "simd"): 116.3374,
+    ("bs", "ap"): 52.6592, ("bs", "simd"): 108.6114,
+}
+#: ``thermal.transient_solve_implicit(power, grid, 0.05, 20, solver=s)``
+#: final maximum [°C] on the paper stack's 256^2 AP die (phase 12).
+REFERENCE_TRANSIENT_MAX_C = {"pcg": 48.3011, "mg": 48.2839}
+STEADY_TOL_C = 0.05
 
 #: H100 SXM peaks at the full 700 W limit (NVIDIA data sheet): HBM3 rate,
 #: and the non-tensor 32-bit rate, used for both float32 and the 32-bit
@@ -248,34 +296,58 @@ def check_capture(results):
           "the AP kernel was not launched by the card capture")
 
 
-@phase("5 main path")
-def main_path(results):
+def _kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by kernel name; each carries the
+    ``.launches`` counter it adds one to where it launches its kernel."""
+    from repro_torch.kernels.ap_match import ops as ap_ops
+    from repro_torch.kernels.mg_smooth import ops as mg_ops
+    from repro_torch.kernels.thermal_stencil import ops as st_ops
+    return {"thermal_stencil": st_ops.apply_operator_fields,
+            "ap_match": ap_ops.run_schedule,
+            "mg_smooth": mg_ops.rb_line_sweep,
+            "thermal_stencil_uniform": st_ops.apply_operator}
+
+
+def reset_launches() -> None:
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+
+
+def check_launched(launches: dict, names, what: str) -> None:
+    for name in names:
+        check(launches[name] > 0, f"{what} launched no {name} kernel")
+
+
+def _stack_path(results, key: str, solver: str, reference: dict):
+    """Drive ``run_stack_cosim`` for the trio at the main path's sizes
+    with ``solver``, the AP trace capture (through run_stack_cosim's own
+    device-keyed cache) timed apart from the replay; check and record it.
+    Returns the launches of this run, counted from 0."""
     import numpy as np
     from repro_torch.core import cosim
     from repro_torch.core import models as M
-    from repro_torch.kernels.ap_match import ops as ap_ops
-    from repro_torch.kernels.thermal_stencil import ops as st_ops
     from repro_torch.stack import feedback
 
     workloads, n_intervals = ("dmm", "fft", "bs"), 48
     cosim._ap_workload_trace.cache_clear()
-    ap_ops.run_schedule.launches = 0
-    st_ops.apply_operator_fields.launches = 0
-    # the trace capture run_stack_cosim starts with, through its own
-    # (device-keyed) cache, timed apart from the replay
+    reset_launches()
     t0 = time.perf_counter()
     for w in workloads:
         cosim.ap_workload_trace(w, n_intervals,
                                 cosim.trace_elems(M.N_DATA), device="cuda")
     t1 = time.perf_counter()
     out = feedback.run_stack_cosim(workloads, n_dram=2, grid_n=24,
-                                   n_intervals=n_intervals, device="cuda")
+                                   n_intervals=n_intervals, solver=solver,
+                                   device="cuda")
     t2 = time.perf_counter()
-    launches = {"ap_match": ap_ops.run_schedule.launches,
-                "thermal_stencil": st_ops.apply_operator_fields.launches}
-    check(launches["ap_match"] > 0, "main path launched no AP kernel")
-    check(launches["thermal_stencil"] > 0,
-          "main path launched no stencil kernel")
+    launches = read_launches()
+    check_launched(launches, ("ap_match", "thermal_stencil")
+                   + (("mg_smooth",) if solver == "mg" else ()),
+                   f"the {solver} stack path")
 
     say("  workload machine  DRAM peak C  reference C   delta C  "
         "above 85C s  converged  verdict")
@@ -288,7 +360,7 @@ def main_path(results):
                 check(bool(np.isfinite(getattr(r, name)).all()),
                       f"{w}/{machine}: {name} not finite")
             peak = float(r.dram_peak_C.max())
-            ref = REFERENCE_DRAM_PEAK_C[(w, machine)]
+            ref = reference[(w, machine)]
             above = r.dram_time_above_limit_s
             verdict = "OK" if above == 0.0 else "BLOCKED"
             cases[f"{w}/{machine}"] = dict(
@@ -312,9 +384,14 @@ def main_path(results):
     say(f"  verdict: AP OK / SIMD BLOCKED for {', '.join(workloads)}; "
         f"capture {t1 - t0:.2f} s, replay {t2 - t1:.2f} s; launches "
         f"{launches}")
-    results["main_path"] = dict(capture_s=t1 - t0, replay_s=t2 - t1,
-                                launches=launches, cases=cases)
+    results[key] = dict(capture_s=t1 - t0, replay_s=t2 - t1,
+                        launches=launches, cases=cases)
     return launches
+
+
+@phase("5 main path")
+def main_path(results):
+    return _stack_path(results, "main_path", "pcg", REFERENCE_DRAM_PEAK_C)
 
 
 def _self_device_us(avg) -> float:
@@ -342,42 +419,34 @@ def _kernel_device_us(prof, name: str):
     return total / count if total > 0 and count else None
 
 
-@phase("6 profile")
-def profile(results):
-    import numpy as np
+def _profiled_us(fn, n: int, name: str):
+    """Device time [us] per launch of kernel ``name`` over ``n`` calls of
+    ``fn`` under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return _kernel_device_us(prof, name)
+
+
+def _replay_window(solver: str, n_win: int = 4) -> dict:
+    """Wall time, device-busy share and top kernels of ``n_win`` intervals
+    of the main path's replay (its six cases) with ``solver``."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     from repro_torch.core import cosim
     from repro_torch.core import models as M
-    from repro_torch.core.engine import schedule_tensors
-    from repro_torch.kernels.ap_match import ops as ap_ops
-    from repro_torch.kernels.thermal_stencil import ops as st_ops
     from repro_torch.stack import feedback
     from repro_torch.stack.spec import PAPER_STACK, dram_on_logic
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
-    # each kernel alone, at the main path's shapes
-    T, F = _stencil_case((6, 7, 36, 36), seed=1)
-    tables, _ = _mul_schedule_tables(0, 192, 384, 17, 401)
-    tabs = schedule_tensors(*tables, "cuda")
-    planes = torch.from_numpy(np.random.default_rng(0).integers(
-        -2 ** 31, 2 ** 31, (402, 32), dtype=np.int64).astype(np.int32)).cuda()
-    with torch_profile(activities=acts) as prof:
-        for _ in range(50):
-            st_ops.apply_operator_fields(T, F)
-        for _ in range(10):
-            ap_ops.run_schedule(planes, *tabs)
-        torch.cuda.synchronize()
-    for key, name in (("stencil_main", "stencil_fields"),
-                      ("ap_main", "run_schedule")):
-        us = _kernel_device_us(prof, name)
-        results[key]["device_ms"] = None if us is None else us / 1e3
-        say(f"  {name}: device time per launch "
-            f"{'not measured' if us is None else f'{us:.2f} us'}")
-
-    # a 4-interval window of the main path's replay (its six cases)
-    spec, n_win = dram_on_logic(2), 4
+    spec = dram_on_logic(2)
     cases = []
     for w in ("dmm", "fft", "bs"):
         dp = cosim.comparable_design_point(w)
@@ -392,32 +461,354 @@ def profile(results):
 
     def window():
         feedback.replay_cases(cases, spec, feedback.FeedbackParams(), 24,
-                              0.25 / 48, device="cuda")
+                              0.25 / 48, solver=solver, device="cuda")
         torch.cuda.synchronize()
 
     window()
     t0 = time.perf_counter()
     window()
     wall_s = time.perf_counter() - t0
-    with torch_profile(activities=acts) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         window()
     avgs = [(a.key, _self_device_us(a), a.count)
             for a in _device_events(prof)]
     busy_us = sum(us for _, us, _ in avgs)
     top = sorted(avgs, key=lambda a: -a[1])[:5]
-    results["replay_window"] = dict(
-        intervals=n_win, wall_s=wall_s, device_busy_s=busy_us / 1e6,
-        busy_share=busy_us / 1e6 / wall_s,
-        top=[dict(kernel=k[:80], device_s=us / 1e6, launches=n)
-             for k, us, n in top])
-    say(f"  replay window ({n_win} of 48 intervals, 6 cases): wall "
+    say(f"  {solver} replay window ({n_win} of 48 intervals, 6 cases): wall "
         f"{wall_s * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
         f"({100 * busy_us / 1e6 / wall_s:.1f} %)")
     for k, us, n in top:
         say(f"    {us / 1e3:8.2f} ms  {n:6d} launches  {k[:70]}")
+    return dict(intervals=n_win, wall_s=wall_s, device_busy_s=busy_us / 1e6,
+                busy_share=busy_us / 1e6 / wall_s,
+                launches=sum(n for _, _, n in avgs),
+                top=[dict(kernel=k[:80], device_s=us / 1e6, launches=n)
+                     for k, us, n in top])
+
+
+@phase("6 profile")
+def profile(results):
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import schedule_tensors
+    from repro_torch.kernels.ap_match import ops as ap_ops
+    from repro_torch.kernels.mg_smooth import ops as mg_ops
+    from repro_torch.kernels.thermal_stencil import ops as st_ops
+
+    # each kernel alone, at the main path's shapes and the large ones
+    jobs = []
+    for label, shape, n in (("main", (6, 7, 36, 36), 50),
+                            ("large", (7, 384, 384), 20)):
+        T, F = _stencil_case(shape, seed=1)
+        jobs.append((f"stencil_{label}", "stencil_fields", n,
+                     lambda T=T, F=F: st_ops.apply_operator_fields(T, F)))
+    for label, n_bits, n_lanes, layout, n in (
+            ("main", 402, 32, (0, 192, 384, 17, 401), 10),
+            ("large", 32, 32768, (0, 6, 12, 13, 25), 10)):
+        tables, _ = _mul_schedule_tables(*layout)
+        tabs = schedule_tensors(*tables, "cuda")
+        planes = torch.from_numpy(np.random.default_rng(0).integers(
+            -2 ** 31, 2 ** 31, (n_bits, n_lanes), dtype=np.int64)
+            .astype(np.int32)).cuda()
+        jobs.append((f"ap_{label}", "run_schedule", n,
+                     lambda p=planes, t=tabs: ap_ops.run_schedule(p, *t)))
+    for label, (T, b, F, d) in _smooth_cases().items():
+        jobs.append((f"smooth_{label}", "rb_line_sweep", 50,
+                     lambda T=T, b=b, F=F, d=d:
+                     mg_ops.rb_line_sweep(T, b, F, d, 0)))
+    T, vecs = _uniform_case()
+    jobs.append(("uniform_large", "stencil_uniform", 20,
+                 lambda: st_ops.apply_operator(T, *vecs)))
+    for key, name, n, fn in jobs:
+        us = _profiled_us(fn, n, name)
+        results.setdefault(key, {})["device_ms"] = \
+            None if us is None else us / 1e3
+        say(f"  {key}: device time per launch "
+            f"{'not measured' if us is None else f'{us:.2f} us'}")
+    results["replay_window"] = _replay_window("pcg")
+
+
+def _replay_fields_and_caps():
+    """The face fields and capacities [6, 7, 36, 36] of the main path's
+    six cases (the trio's AP and SIMD dies, grid_n=24, margin 6, two DRAM
+    dies), on the card."""
+    import math
+    import torch
+    from repro_torch.core import cosim, thermal
+    from repro_torch.core.floorplan import MM
+    from repro_torch.stack.spec import dram_on_logic
+    grids = []
+    for w in ("dmm", "fft", "bs"):
+        dp = cosim.comparable_design_point(w)
+        for area in (dp.ap_area_mm2, dp.simd_area_mm2):
+            grids.append(thermal.Grid(die_w=math.sqrt(area) * MM, ny=24,
+                                      nx=24, spec=dram_on_logic(2),
+                                      margin=6))
+    Fs = [g.fields("cuda") for g in grids]
+    F = {k: torch.stack([f[k] for f in Fs]) for k in Fs[0]}
+    cap = torch.stack([g.capacity_field("cuda") for g in grids])
+    return F, cap
+
+
+_SMOOTH_CASES: dict = {}
+
+
+def _smooth_cases() -> dict:
+    """Inputs (T, b, F, d_extra) of the smoother at the mg replay's finest
+    level (``d_extra = cap3/dt``), its 18^2 level, and the 256^2 steady
+    grid (``d_extra = 0``), on the card; built once."""
+    if _SMOOTH_CASES:
+        return _SMOOTH_CASES
+    import numpy as np
+    import torch
+    from repro_torch.core import multigrid, thermal
+    from repro_torch.stack.spec import dram_on_logic
+    F, cap = _replay_fields_and_caps()
+    d = cap / (0.25 / 48 / 2)
+    levels = multigrid.build_levels(F, d)
+    big = thermal.Grid(die_w=5e-3, ny=256, nx=256, margin=64,
+                       spec=dram_on_logic(2)).fields("cuda")
+    for i, (label, (Fl, dl)) in enumerate((
+            ("replay", levels[0]), ("level18", levels[1]),
+            ("large", (big, torch.zeros_like(big["g_pkg"]))))):
+        rng = np.random.default_rng(100 + i)
+        shape = tuple(Fl["g_pkg"].shape)
+        T = torch.from_numpy(rng.normal(50.0, 20.0, shape)
+                             .astype(np.float32)).cuda()
+        b = torch.from_numpy(rng.uniform(0.0, 1e-2, shape)
+                             .astype(np.float32)).cuda()
+        _SMOOTH_CASES[label] = (T, b, Fl, dl)
+    return _SMOOTH_CASES
+
+
+def _uniform_case():
+    """T [5, 384, 384] and the paper stack's four per-layer vectors on the
+    card (the size of the §4 comparison's AP domain, 256^2 die + margin
+    64, over a 7.33 mm die)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import thermal
+    grid = thermal.Grid(die_w=7.33e-3, ny=384, nx=384)
+    g = grid.conductances()
+    vecs = thermal._vectors(grid.n_layers, g["g_lat"], g["g_vert"],
+                            g["g_pkg"], "cuda")
+    T = torch.from_numpy(np.random.default_rng(7).normal(
+        50.0, 20.0, (grid.n_layers, 384, 384)).astype(np.float32)).cuda()
+    return T, vecs
+
+
+@phase("7 smoother kernel vs plain")
+def check_smoother(results):
+    import torch
+    from repro_torch.kernels.mg_smooth import ops
+    reps = {"replay": 2000, "level18": 2000, "large": 200}
+    for label, (T, b, F, d) in _smooth_cases().items():
+        for color in (0, 1):
+            got = ops.rb_line_sweep(T, b, F, d, color)
+            want = ops.rb_line_sweep_plain(T, b, F, d, color)
+            torch.cuda.synchronize()
+            check(torch.isfinite(got).all().item(), "smoother not finite")
+            err = float((got - want).abs().max())
+            check(torch.equal(got, want), f"smoother kernel differs from "
+                  f"plain at {tuple(T.shape)}, colour {color}: max |diff| "
+                  f"= {err}")
+        cells = T.numel()
+        coloured = cells // 2
+        b_ms, b_by = bound_ms(44.0 * cells, 23.0 * coloured)
+        ms = cuda_ms(lambda: ops.rb_line_sweep(T, b, F, d, 0), reps[label])
+        plain = cuda_ms(lambda: ops.rb_line_sweep_plain(T, b, F, d, 0),
+                        max(reps[label] // 20, 10))
+        results.setdefault(f"smooth_{label}", {}).update(
+            shape=list(T.shape), max_abs_err=0.0, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        say(f"  rb_line_sweep {tuple(T.shape)}: exact, both colours; kernel "
+            f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, bound "
+            f"{b_ms * 1e3:.2f} us ({b_by})")
+
+
+@phase("8 uniform stencil kernel vs plain")
+def check_uniform(results):
+    import torch
+    from repro_torch.kernels.thermal_stencil import ops
+    T, vecs = _uniform_case()
+    got = ops.apply_operator(T, *vecs)
+    want = ops.apply_operator_plain(T, *vecs)
+    torch.cuda.synchronize()
+    check(torch.isfinite(got).all().item(), "uniform stencil not finite")
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"uniform stencil kernel differs from "
+          f"plain at {tuple(T.shape)}: max |diff| = {err}")
+    cells, L = T.numel(), T.shape[0]
+    b_ms, b_by = bound_ms(8.0 * cells + 16.0 * L, 12.0 * cells)
+    ms = cuda_ms(lambda: ops.apply_operator(T, *vecs), 200)
+    plain = cuda_ms(lambda: ops.apply_operator_plain(T, *vecs), 20)
+    results.setdefault("uniform_large", {}).update(
+        shape=list(T.shape), max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    say(f"  apply_operator {tuple(T.shape)}: exact; kernel {ms * 1e3:.2f} "
+        f"us, plain {plain * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
+        f"({b_by})")
+
+
+@phase("9 steady solver comparison")
+def solver_comparison(results):
+    import numpy as np
+    import torch
+    from repro_torch.core import thermal
+    from repro_torch.stack.spec import dram_on_logic
+
+    spec = dram_on_logic(2)
+
+    def case(n):
+        grid = thermal.Grid(die_w=5e-3, ny=n, nx=n, margin=n // 4,
+                            spec=spec)
+        power = np.zeros((grid.n_die_layers, n, n), np.float32)
+        power[list(spec.logic_layers)] = 40.0 / (len(spec.logic_layers)
+                                                 * n * n)
+        return grid, power
+
+    grid, power = case(16)                 # warm-up: library handles
+    for s in thermal.SOLVERS:
+        thermal.steady_state_stats(power, grid, solver=s, device="cuda")
+    grid, power = case(256)
+    rows, temps = {}, {}
+    say("  solver  iterations  seconds   max C      reference  rel_residual"
+        "  attempts solved_by")
+    for s in thermal.SOLVERS:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T, st = thermal.steady_state_stats(power, grid, solver=s,
+                                           device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = read_launches()
+        check_launched(launches, ("thermal_stencil",)
+                       + (("mg_smooth",) if s != "pcg" else ()),
+                       f"steady {s}")
+        check(bool(torch.isfinite(T).all()), f"steady {s}: not finite")
+        temps[s] = T
+        rows[s] = dict(st, seconds=sec, max_C=float(T.max()),
+                       reference_C=REFERENCE_STEADY_MAX_C[s],
+                       launches=launches)
+        say(f"  {s:6s} {st['iterations']:10d} {sec:9.3f} "
+            f"{rows[s]['max_C']:9.4f} {REFERENCE_STEADY_MAX_C[s]:10.4f} "
+            f"{st['rel_residual']:12.3e} {st['attempts']:9d} "
+            f"{st['solved_by']}")
+    for s in thermal.SOLVERS:
+        check(abs(rows[s]["max_C"] - REFERENCE_STEADY_MAX_C[s])
+              <= STEADY_TOL_C, f"steady {s}: max {rows[s]['max_C']:.4f} C "
+              f"is more than {STEADY_TOL_C} C from the reference")
+    for s in ("mg", "mgcg"):
+        diff = float((temps[s] - temps["pcg"]).abs().max())
+        rows[s]["maxdiff_vs_pcg_C"] = diff
+        rows[s]["speedup_vs_pcg"] = rows["pcg"]["seconds"] / rows[s]["seconds"]
+        check(diff <= 1e-3, f"steady {s} differs from pcg by {diff:.2e} C")
+        check(rows[s]["rel_residual"] <= thermal.HEALTH_RTOL,
+              f"steady {s}: true relative residual "
+              f"{rows[s]['rel_residual']:.3e} above HEALTH_RTOL")
+        say(f"  {s}: max |T - T_pcg| {diff:.2e} C, "
+            f"{rows[s]['speedup_vs_pcg']:.1f}x the speed of pcg")
+    results["steady_256"] = rows
+
+
+@phase("10 paper section 4")
+def paper_comparison(results):
+    import torch
+    from repro_torch.core import floorplan
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = floorplan.thermal_comparison(grid_ap=256, grid_simd=64,
+                                       workload="dmm", device="cuda")
+    sec = time.perf_counter() - t0
+    launches = read_launches()
+    check_launched(launches, ("thermal_stencil",), "the section 4 path")
+    ap, simd = res["ap"], res["simd"]
+    ap_peak, ap_span = max(ap["peak_C"]), ap["span_C"][0]
+    simd_peak, simd_min = simd["peak_C"][0], simd["min_C"][0]
+    ap_ok = ap_peak < 85.0
+    simd_ok = simd_min < 85.0
+    for m in ("ap", "simd"):
+        say(f"  {m:4s} layer peaks " + " ".join(
+            f"{p:.4f}" for p in res[m]["peak_C"]) + "  reference "
+            + " ".join(f"{p:.4f}" for p in REFERENCE_PAPER_PEAK_C[m]))
+        for p, ref in zip(res[m]["peak_C"], REFERENCE_PAPER_PEAK_C[m]):
+            check(abs(p - ref) <= STEADY_TOL_C, f"{m} peak {p:.4f} C is "
+                  f"more than {STEADY_TOL_C} C from the reference {ref}")
+    check(48.0 <= ap_peak <= 58.0, f"AP peak {ap_peak:.2f} C outside 48-58")
+    check(ap_span < 3.5, f"AP span {ap_span:.2f} C not below 3.5")
+    check(120.0 <= simd_peak <= 140.0,
+          f"SIMD peak {simd_peak:.2f} C outside 120-140")
+    check(95.0 <= simd_min <= 112.0,
+          f"SIMD min {simd_min:.2f} C outside 95-112")
+    check(ap_ok and not simd_ok, "section 4 verdict is not AP OK / SIMD "
+          "BLOCKED")
+    say(f"  AP peak {ap_peak:.2f} C span {ap_span:.2f} C; SIMD "
+        f"{simd_min:.2f}-{simd_peak:.2f} C; 3D-DRAM verdict: AP OK / SIMD "
+        f"BLOCKED; {sec:.2f} s; launches {launches}")
+    results["paper_s4"] = dict(seconds=sec, launches=launches,
+                               ap_peak_C=ap["peak_C"], ap_span_C=ap["span_C"],
+                               simd_peak_C=simd["peak_C"],
+                               simd_min_C=simd["min_C"])
+
+
+@phase("11 mg stack path")
+def mg_path(results):
+    launches = _stack_path(results, "mg_path", "mg", REFERENCE_MG_DRAM_PEAK_C)
+    pcg, mg = results["main_path"], results["mg_path"]
+    say(f"  mg replay {mg['replay_s']:.2f} s against the pcg replay's "
+        f"{pcg['replay_s']:.2f} s (phase 5)")
+    results["mg_replay_window"] = _replay_window("mg")
+    return launches
+
+
+@phase("12 legacy transient")
+def legacy_transient(results):
+    import math
+    import torch
+    from repro_torch.core import floorplan, thermal
+    from repro_torch.core import models as M
+    from repro_torch.core.floorplan import MM
+    from repro_torch.stack.spec import PAPER_SPEC
+    dp = M.paper_design_point("dmm")
+    fp = floorplan.APFloorplan(die_w_mm=math.sqrt(dp.ap_area_mm2))
+    power = floorplan._logic_power(fp.power_map(256, dp.ap_power_W),
+                                   PAPER_SPEC)
+    grid = thermal.Grid(die_w=fp.die_w_mm * MM, ny=256, nx=256)
+    rows = {}
+    for s, kernels in (("pcg", ("thermal_stencil_uniform",)),
+                       ("mg", ("mg_smooth", "thermal_stencil"))):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T, peaks = thermal.transient_solve_implicit(power, grid, 0.05, 20,
+                                                    solver=s, device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = read_launches()
+        check_launched(launches, kernels, f"the {s} transient")
+        check(bool(torch.isfinite(T).all()), f"transient {s}: not finite")
+        mx, ref = float(T.max()), REFERENCE_TRANSIENT_MAX_C[s]
+        check(abs(mx - ref) <= STEADY_TOL_C, f"transient {s}: max {mx:.4f} "
+              f"C is more than {STEADY_TOL_C} C from the reference {ref}")
+        rows[s] = dict(max_C=mx, reference_C=ref, seconds=sec,
+                       launches=launches)
+        say(f"  {s}: 20 steps to 0.05 s, max {mx:.4f} C (reference "
+            f"{ref:.4f}), {sec:.2f} s; launches {launches}")
+    results["legacy_transient"] = rows
+    return rows["pcg"]["launches"]
 
 
 # ---------------------------------------------------------------------------
+
+def _kernel_row(name, source, replaces, launches, r, **extra):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, **{k: r[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}, **extra)
+
 
 def main() -> int:
     try:
@@ -450,23 +841,40 @@ def main() -> int:
     check_capture(results)
     launches = main_path(results)
     profile(results)
+    check_smoother(results)
+    check_uniform(results)
+    solver_comparison(results)
+    paper_comparison(results)
+    mg_launches = mg_path(results)
+    legacy_launches = legacy_transient(results)
 
+    src = "src/repro_torch/kernels"
+    ref = "src/repro/kernels"
+    by_path = {
+        "steady_256_" + s: results["steady_256"][s]["launches"]["mg_smooth"]
+        for s in ("mg", "mgcg")}
+    by_path["mg_stack_path"] = mg_launches["mg_smooth"]
+    by_path["transient_mg"] = \
+        results["legacy_transient"]["mg"]["launches"]["mg_smooth"]
     kernels = [
-        dict(name="thermal_stencil.apply_operator_fields", route="cuda",
-             source="src/repro_torch/kernels/thermal_stencil/csrc/"
-                    "thermal_stencil.cu",
-             replaces="src/repro/kernels/thermal_stencil/kernel.py:75",
-             launches=launches["thermal_stencil"],
-             **{k: results["stencil_main"][k] for k in (
-                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")}),
-        dict(name="ap_match.run_schedule", route="cuda",
-             source="src/repro_torch/kernels/ap_match/csrc/ap_match.cu",
-             replaces="src/repro/kernels/ap_match/kernel.py:66",
-             launches=launches["ap_match"],
-             **{k: results["ap_main"][k] for k in (
-                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")}),
+        _kernel_row("thermal_stencil.apply_operator_fields",
+                    f"{src}/thermal_stencil/csrc/thermal_stencil.cu",
+                    f"{ref}/thermal_stencil/kernel.py:75",
+                    launches["thermal_stencil"], results["stencil_main"]),
+        _kernel_row("ap_match.run_schedule",
+                    f"{src}/ap_match/csrc/ap_match.cu",
+                    f"{ref}/ap_match/kernel.py:66",
+                    launches["ap_match"], results["ap_main"]),
+        _kernel_row("mg_smooth.rb_line_sweep",
+                    f"{src}/mg_smooth/csrc/mg_smooth.cu",
+                    f"{ref}/mg_smooth/kernel.py:76",
+                    mg_launches["mg_smooth"], results["smooth_replay"],
+                    launches_by_path=by_path),
+        _kernel_row("thermal_stencil.apply_operator",
+                    f"{src}/thermal_stencil/csrc/thermal_stencil.cu",
+                    f"{ref}/thermal_stencil/kernel.py:101",
+                    legacy_launches["thermal_stencil_uniform"],
+                    results["uniform_large"]),
     ]
     results["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

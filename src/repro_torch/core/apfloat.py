@@ -2,7 +2,7 @@
 
 Port note: only :func:`_tag_ge` is ported so far — it is all the
 Black-Scholes workload imports.  The bit-serial IEEE-754 routines follow
-with the rest of the AP machine (ROADMAP Queue 1, item 3).
+with the rest of the AP machine (ROADMAP Queue 1, item 1).
 """
 from __future__ import annotations
 

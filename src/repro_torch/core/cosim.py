@@ -18,7 +18,7 @@ Port note: this slice ports what the closed-loop replay needs —
 :func:`ap_workload_trace`, :func:`simd_phase_trace`,
 :func:`interval_forecaster` and :func:`comparable_design_point`.  The
 open-loop ``cosim_transient`` replay, ``run_cosim``, frame synthesis and
-interval coarsening follow (ROADMAP Queue 1, item 4).
+interval coarsening follow (ROADMAP Queue 1, item 2).
 """
 from __future__ import annotations
 

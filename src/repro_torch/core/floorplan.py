@@ -18,13 +18,16 @@ side columns of six, shared L2 as the central band.  Execution power lands
 in the PU arrays, synchronization power in the caches, leakage everywhere in
 proportion to area (eq 14's decomposition).
 
-Port note: this is the PyTorch port's own copy of the reference module's
-NumPy floorplans.  ``ap_block_zoom`` and ``thermal_comparison``, which call
-the steady-state solver, come with it (ROADMAP Queue 1, item 2).
+Port note: this is the PyTorch port's own copy of the reference module,
+whole.  ``ap_block_zoom`` and ``thermal_comparison`` (the paper's §4
+experiment) run the port's steady-state solver and take ``device``
+(default ``"cuda"``) in place of the reference's ``use_pallas``; their
+results are host NumPy, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
@@ -172,3 +175,127 @@ class SIMDFloorplan:
         pmap[dens == 0.0] = (p_sync_W - sync_l1_W) / l2_cells
         pmap += p_leak_W / grid_n ** 2
         return pmap
+
+
+# ---------------------------------------------------------------------------
+# AP block zoom (paper Fig 10(c)): one block at fine resolution
+# ---------------------------------------------------------------------------
+
+def ap_block_zoom(fp: APFloorplan, p_layer_W: float, grid_n: int = 64,
+                  stack=None, device="cuda") -> dict:
+    """Thermal map of one AP block near the die center (Fig 10(c)).
+
+    Symmetry argument: a block surrounded by identical blocks sees
+    adiabatic lateral boundaries, so solving ONE block footprint with the
+    full stack reproduces the infinite-array interior exactly.  The
+    KEY/MASK register strip (top) and TAG strip (right) get their share
+    of the block power at their true (small) areas.
+    """
+    from repro_torch.core import thermal
+
+    spec = _as_spec(stack)
+    w = fp.region_weights()
+    a = fp.region_areas()
+    nb = fp.blocks_per_edge ** 2
+    block_w_mm = fp.die_w_mm / fp.blocks_per_edge
+    dyn_total = sum(w[r] * a[r] for r in w) * nb
+    leak_W = fp.leakage_W()
+    dyn_W = p_layer_W - leak_W
+    region_W = {r: dyn_W * (w[r] * a[r] / dyn_total) for r in w}   # per block
+    leak_block = leak_W / nb
+
+    # geometry: register strip height / tag strip width as true area shares
+    a_block = sum(a.values())
+    reg_frac = a["regs"] / a_block
+    tag_frac = a["tag"] / a_block
+    reg_rows = max(1, int(round(reg_frac * grid_n)))
+    tag_cols = max(1, int(round(tag_frac * grid_n)))
+
+    pmap = np.zeros((grid_n, grid_n))
+    arr_cells = grid_n * grid_n - reg_rows * grid_n \
+        - tag_cols * (grid_n - reg_rows)
+    pmap[reg_rows:, : grid_n - tag_cols] = region_W["array"] / arr_cells
+    pmap[:reg_rows, :] = region_W["regs"] / (reg_rows * grid_n)
+    pmap[reg_rows:, grid_n - tag_cols:] = region_W["tag"] \
+        / (tag_cols * (grid_n - reg_rows))
+    pmap += leak_block / grid_n ** 2
+
+    grid = thermal.Grid(die_w=block_w_mm * MM, ny=grid_n, nx=grid_n,
+                        spec=spec,
+                        pkg_area=(fp.die_w_mm * MM) ** 2)
+    L = grid.n_die_layers
+    power = _logic_power(pmap, spec)
+    T = thermal.steady_state(power, grid, device=device).cpu().numpy()
+    return {"T": T, "power_map": pmap,
+            "peak_C": [float(T[l].max()) for l in range(L)],
+            "min_C": [float(T[l].min()) for l in range(L)],
+            "span_C": [float(T[l].max() - T[l].min()) for l in range(L)]}
+
+
+# ---------------------------------------------------------------------------
+# paper §4 comparison driver
+# ---------------------------------------------------------------------------
+
+def _as_spec(stack):
+    """Accept a StackSpec, a legacy StackParams, or None (paper default)."""
+    from repro_torch.stack.spec import PAPER_STACK, StackSpec, \
+        spec_from_params
+
+    if stack is None:
+        stack = PAPER_STACK
+    return stack if isinstance(stack, StackSpec) else spec_from_params(stack)
+
+
+def _logic_power(pmap: np.ndarray, spec) -> np.ndarray:
+    """[n_die, ny, nx] power with ``pmap`` on every LOGIC layer (the §4
+    convention) and zeros on DRAM layers."""
+    power = np.zeros((spec.n_die_layers, *pmap.shape), pmap.dtype)
+    for l in spec.logic_layers:
+        power[l] = pmap
+    return power
+
+
+def t_cut(T: np.ndarray) -> np.ndarray:
+    """Horizontal center-line profile of one layer (paper Fig 13 'T-Cut')."""
+    return np.asarray(T)[T.shape[0] // 2, :]
+
+
+def thermal_comparison(grid_ap: int = 64, grid_simd: int = 64,
+                       workload: str = "dmm", device="cuda",
+                       stack=None) -> dict:
+    """Run the full §4 experiment: same-performance AP vs SIMD, 4-layer
+    stacks by default; pass a heterogeneous ``StackSpec`` (e.g.
+    ``repro_torch.stack.spec.dram_on_logic``) to put unpowered DRAM dies
+    on top.  Each steady solve is Jacobi-PCG on ``device``."""
+    from repro_torch.core import thermal
+
+    spec = _as_spec(stack)
+    dp = M.paper_design_point(workload)
+    ap_fp = APFloorplan(die_w_mm=math.sqrt(dp.ap_area_mm2))
+    simd_fp = SIMDFloorplan(die_w_mm=math.sqrt(dp.simd_area_mm2))
+
+    results = {}
+    for name, fp, p_layer in (
+            ("ap", ap_fp, dp.ap_power_W),
+            ("simd", simd_fp, dp.simd_power_W)):
+        if name == "ap":
+            pmap = fp.power_map(grid_ap, p_layer)
+        else:
+            pmap = fp.power_map(grid_simd, dp)
+        L = spec.n_die_layers
+        power = _logic_power(pmap, spec)
+        grid = thermal.Grid(die_w=fp.die_w_mm * MM, ny=pmap.shape[0],
+                            nx=pmap.shape[1], spec=spec,
+                            margin=pmap.shape[0] // 4)
+        T = thermal.steady_state(power, grid, device=device).cpu().numpy()
+        results[name] = {
+            "T": T,
+            "power_map": pmap,
+            "p_layer_W": float(pmap.sum()),
+            "peak_C": [float(T[l].max()) for l in range(L)],
+            "min_C": [float(T[l].min()) for l in range(L)],
+            "span_C": [float(T[l].max() - T[l].min()) for l in range(L)],
+            "t_cut": [t_cut(T[l]) for l in range(L)],
+        }
+    results["design_point"] = dp
+    return results

@@ -58,3 +58,27 @@ def case_from_reference(leaves, device="cuda") -> tuple:
     as_t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
     return (as_t(dyn), as_t(l0), as_t(r0), as_t(lm),
             fields_from_reference(F, dev), as_t(cap3))
+
+
+def conductances_from_reference(g: dict, device="cuda") -> dict:
+    """The reference's legacy ``Grid.conductances()`` (``g_lat`` [L],
+    ``g_vert`` [L-1] arrays, ``g_pkg`` and ``r_pkg`` floats) -> float32
+    tensors on ``device`` for the arrays, Python floats for the rest."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in g.items():
+        if k in ("g_lat", "g_vert"):
+            out[k] = torch.from_numpy(np.array(v, np.float32)).to(dev)
+        else:
+            out[k] = float(v)
+    return out
+
+
+def levels_from_reference(levels, device="cuda") -> list:
+    """A reference multigrid hierarchy ``[(F_0, d_0), (F_1, d_1), ...]``
+    (field dicts and ``d_extra`` arrays, any leading batch dims) -> the
+    same hierarchy as float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return [(fields_from_reference(F, dev),
+             torch.from_numpy(np.array(d, np.float32)).to(dev))
+            for F, d in levels]

@@ -1,12 +1,16 @@
-"""The face-conductance thermal stencil: CUDA kernel and plain version.
+"""The thermal stencils: CUDA kernels and plain versions.
 
-:func:`apply_operator_fields` is the matvec inside every PCG iteration of
-the closed-loop replay.  For a tensor on the CPU it runs
-:func:`apply_operator_fields_plain`; for a CUDA tensor it launches the
-hand-written kernel ``csrc/thermal_stencil.cu`` (which replaces the TPU
-kernel ``apply_operator_fields_kernel`` of the reference package) or
-raises — it never falls back.  ``apply_operator_fields.launches`` counts
-kernel launches.
+:func:`apply_operator_fields` is the face-conductance matvec inside every
+PCG iteration and multigrid residual of the fields operator;
+:func:`apply_operator` is the legacy uniform-per-layer matvec of the
+``transient``/``transient_implicit`` steppers and ``_cg_solve``.  For a
+tensor on the CPU each runs its plain version
+(:func:`apply_operator_fields_plain`, :func:`apply_operator_plain`); for a
+CUDA tensor it launches its hand-written kernel in
+``csrc/thermal_stencil.cu`` (which replace the TPU kernels
+``apply_operator_fields_kernel`` and ``apply_operator_kernel`` of the
+reference package) or raises — it never falls back.  Each wrapper's
+``.launches`` counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -74,11 +78,67 @@ def apply_operator_fields(T: torch.Tensor, F: dict) -> torch.Tensor:
 apply_operator_fields.launches = 0
 
 
+def apply_operator_plain(T: torch.Tensor, g_lat: torch.Tensor,
+                         gv_up: torch.Tensor, gv_dn: torch.Tensor,
+                         g_pkg: torch.Tensor) -> torch.Tensor:
+    """y = G T over the last three dims ``[..., L, NY, NX]`` with the
+    per-layer ``[L]`` vectors of the uniform stencil (plain PyTorch; the
+    terms in the reference's order)."""
+    col = lambda v: v[:, None, None]
+    t_up, t_dn = _shift(T, -2, -1), _shift(T, -2, 1)
+    t_lf, t_rt = _shift(T, -1, -1), _shift(T, -1, 1)
+    y = col(g_lat) * (4.0 * T - t_up - t_dn - t_lf - t_rt)
+    l_up, l_dn = _shift(T, -3, -1), _shift(T, -3, 1)
+    return (y + col(gv_up) * (T - l_up) + col(gv_dn) * (T - l_dn)
+            + col(g_pkg) * T)
+
+
+def apply_operator(T: torch.Tensor, g_lat: torch.Tensor,
+                   gv_up: torch.Tensor, gv_dn: torch.Tensor,
+                   g_pkg: torch.Tensor) -> torch.Tensor:
+    """y = G T of the uniform-per-layer stencil for ``T`` of shape
+    [L, NY, NX] or [B, L, NY, NX]; the four vectors are float32 [L] on
+    T's device (``thermal._vectors`` builds them), shared by the batch."""
+    vecs = (g_lat, gv_up, gv_dn, g_pkg)
+    if T.device.type == "cpu":
+        return apply_operator_plain(T, *vecs)
+    if T.device.type != "cuda":
+        raise ValueError(f"unsupported device {T.device}")
+    if T.dim() not in (3, 4) or T.dtype != torch.float32:
+        raise ValueError(f"T must be float32 [L,NY,NX] or [B,L,NY,NX]; got "
+                         f"{T.dtype} {tuple(T.shape)}")
+    L, NY, NX = T.shape[-3:]
+    for name, v in zip(("g_lat", "gv_up", "gv_dn", "g_pkg"), vecs):
+        if (v.shape != (L,) or v.dtype != torch.float32
+                or v.device != T.device or not v.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 [{L}] "
+                             f"tensor on {T.device}")
+    T = T.contiguous()
+    B = T.shape[0] if T.dim() == 4 else 1
+    y = torch.empty_like(T)
+    if y.numel() == 0:
+        return y
+    rc = _lib().thermal_stencil_uniform(
+        T.data_ptr(), *(v.data_ptr() for v in vecs), y.data_ptr(),
+        B, L, NY, NX, torch.cuda.current_stream(T.device).cuda_stream)
+    _build.check(rc, "thermal_stencil_uniform")
+    apply_operator.launches += 1
+    return y
+
+
+apply_operator.launches = 0
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("thermal_stencil")
     fn = lib.thermal_stencil_fields
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+    fn = lib.thermal_stencil_uniform
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
     return lib

@@ -2,7 +2,7 @@
 
 Port note: only :class:`RampPolicy`, the default controller of the
 closed-loop replay, is ported so far; hysteresis, PID, per-die, DVFS and
-predictive control follow (ROADMAP Queue 1, item 4).
+predictive control follow (ROADMAP Queue 1, item 2).
 """
 from __future__ import annotations
 

@@ -16,8 +16,11 @@ intervals and closes the loop through three temperature couplings —
 
 Refresh and leakage are solved implicitly by **Picard iteration**: iterate
 k evaluates them at iterate k−1's end-of-interval temperature and
-re-integrates the interval with implicit theta steps (``thermal.pcg_fixed``
-inner solves, whose matvec is the thermal-stencil kernel on a card).  The
+re-integrates the interval with implicit theta steps.  The inner solve is
+``solver="pcg"`` (``n_cg`` iterations of ``thermal.pcg_fixed``, whose
+matvec is the thermal-stencil kernel on a card) or ``solver="mg"``
+(``n_mg`` V-cycles of ``multigrid.iterate_fixed`` on a hierarchy built
+once per replay, smoothed by the ``mg_smooth`` kernel on a card).  The
 recorded fixed-point residual ``max |T_k − T_{k−1}|`` must fall below
 ``picard_tol_C`` (0.05 °C) on every interval.  The DTM throttle stays
 outside the fixed point: it actuates on the start-of-interval sample.
@@ -35,10 +38,11 @@ Where the API differs from the reference:
   CPU).  :func:`replay_cases` and :func:`run_stack_cosim` take
   ``device`` (default ``"cuda"``).
 - Not ported yet, and rejected where asked for: ``dt_scale`` (the
-  variable-step replay), ``n_shards``, ``solver="mg"``, sensor faults
+  variable-step replay; once ported it must refuse ``solver="mg"`` with
+  the reference's ``ValueError``), ``n_shards``, sensor faults
   (``FeedbackParams.faults``), policies other than :class:`RampPolicy`,
   ``stack_power_frames``, ``closed_loop_sharded`` and the ``obs``
-  telemetry spans (ROADMAP Queue 1, item 4).
+  telemetry spans (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -95,10 +99,10 @@ class FeedbackParams:
                                                       RampPolicy):
             raise NotImplementedError(
                 f"policy {type(self.policy).__name__} is not ported yet; "
-                "only RampPolicy (ROADMAP Queue 1, item 4)")
+                "only RampPolicy (ROADMAP Queue 1, item 2)")
         if self.faults is not None:
             raise NotImplementedError(
-                "sensor faults are not ported yet (ROADMAP Queue 1, item 4)")
+                "sensor faults are not ported yet (ROADMAP Queue 1, item 2)")
 
     def resolved_policy(self) -> Policy:
         """The controller the replay actually runs."""
@@ -186,11 +190,11 @@ def _check_unported(solver: str, dt_scale=None, n_shards=None) -> None:
     if dt_scale is not None:
         raise NotImplementedError(
             "dt_scale (the variable-step replay) is not ported yet "
-            "(ROADMAP Queue 1, item 4)")
+            "(ROADMAP Queue 1, item 2)")
     if n_shards:
         raise NotImplementedError(
             "n_shards (the sharded case batch) is not ported yet "
-            "(ROADMAP Queue 1, item 4)")
+            "(ROADMAP Queue 1, item 2)")
 
 
 def closed_loop_replay(dyn_frames, leak0, refresh0, logic_mask, F: dict,

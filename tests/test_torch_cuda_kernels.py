@@ -16,6 +16,7 @@ from repro_torch.core import arith, isa
 from repro_torch.core.bitplane import Field
 from repro_torch.core.engine import PassSchedule, bucket_schedule
 from repro_torch.kernels.ap_match import ops as ap_ops
+from repro_torch.kernels.mg_smooth import ops as mg_ops
 from repro_torch.kernels.thermal_stencil import ops as st_ops
 
 pytestmark = pytest.mark.cuda
@@ -52,6 +53,83 @@ def test_stencil_kernel_rejects_what_it_does_not_take(cuda):
         st_ops.apply_operator_fields(T.double(), F)
     with pytest.raises(ValueError):
         st_ops.apply_operator_fields(T, dict(F, g_pkg=F["g_pkg"].cpu()))
+
+
+def _smooth_case(shape, seed, cuda):
+    rng = np.random.default_rng(seed)
+    as_t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
+    T = as_t(rng.uniform(45, 75, shape))
+    b = as_t(rng.uniform(0, 1e-3, shape))
+    F = {k: as_t(rng.uniform(0, 1e-2, shape)) for k in st_ops.FIELD_KEYS}
+    for k in ("gz_up", "gx_lf", "gy_up"):   # void faces and top layer
+        F[k][..., :1, :, :] = 0.0
+    F["gz_dn"][..., -1:, :, :] = 0.0
+    d = as_t(rng.uniform(0, 5e-2, shape))
+    d[..., :, :2, :] = 0.0        # all-zero void columns: diag guard
+    for k in F:
+        F[k][..., :, :2, :] = 0.0
+    return T, b, F, d
+
+
+@pytest.mark.parametrize("color", [0, 1])
+@pytest.mark.parametrize("shape", [(7, 36, 36), (6, 7, 36, 36),
+                                   (6, 7, 18, 18), (5, 40, 24),
+                                   (2, 9, 5, 33), (1, 6, 6)])
+def test_smoother_kernel_equals_plain(cuda, shape, color):
+    """The red-black line sweep repeats its plain version bit for bit
+    (sums in the same order, -fmad=false, IEEE division)."""
+    T, b, F, d = _smooth_case(shape, sum(shape) + color, cuda)
+    before = mg_ops.rb_line_sweep.launches
+    got = mg_ops.rb_line_sweep(T, b, F, d, color)
+    assert mg_ops.rb_line_sweep.launches == before + 1
+    torch.testing.assert_close(
+        got, mg_ops.rb_line_sweep_plain(T, b, F, d, color), rtol=0, atol=0)
+    # a scalar d_extra is expanded as the reference's wrapper broadcasts it
+    torch.testing.assert_close(
+        mg_ops.rb_line_sweep(T, b, F, 0.0, color),
+        mg_ops.rb_line_sweep_plain(T, b, F, torch.zeros_like(T), color),
+        rtol=0, atol=0)
+
+
+def test_smoother_kernel_rejects_what_it_does_not_take(cuda):
+    T, b, F, d = _smooth_case((3, 8, 8), 0, cuda)
+    with pytest.raises(ValueError):
+        mg_ops.rb_line_sweep(T.double(), b, F, d, 0)
+    with pytest.raises(ValueError):
+        mg_ops.rb_line_sweep(T, b[:, :4], F, d, 0)
+    with pytest.raises(ValueError):
+        mg_ops.rb_line_sweep(T, b, F, d.cpu(), 0)
+    big = torch.zeros((mg_ops.MAX_LAYERS + 1, 4, 4), device=cuda)
+    Fb = {k: torch.zeros_like(big) for k in st_ops.FIELD_KEYS}
+    with pytest.raises(ValueError, match="layers"):
+        mg_ops.rb_line_sweep(big, big, Fb, 0.0, 1)
+
+
+@pytest.mark.parametrize("shape", [(5, 384, 384), (5, 64, 64), (7, 40, 24),
+                                   (3, 5, 16, 16), (1, 1, 7)])
+def test_uniform_stencil_kernel_equals_plain(cuda, shape):
+    rng = np.random.default_rng(sum(shape))
+    L = shape[-3]
+    T = torch.from_numpy(rng.uniform(45, 75, shape).astype(np.float32))
+    vecs = [torch.from_numpy(rng.uniform(0, 1e-1, L).astype(np.float32))
+            for _ in range(4)]
+    vecs[1][0] = 0.0        # no interface above the top layer
+    vecs[2][-1] = 0.0       # nor below the spreader
+    T, vecs = T.to(cuda), [v.to(cuda) for v in vecs]
+    before = st_ops.apply_operator.launches
+    y = st_ops.apply_operator(T, *vecs)
+    assert st_ops.apply_operator.launches == before + 1
+    torch.testing.assert_close(y, st_ops.apply_operator_plain(T, *vecs),
+                               rtol=0, atol=0)
+
+
+def test_uniform_stencil_kernel_rejects_bad_vectors(cuda):
+    T = torch.zeros((3, 8, 8), device=cuda)
+    v = torch.zeros(3, device=cuda)
+    with pytest.raises(ValueError):
+        st_ops.apply_operator(T, v, v, v, torch.zeros(2, device=cuda))
+    with pytest.raises(ValueError):
+        st_ops.apply_operator(T, v, v, v.cpu(), v)
 
 
 def _schedule(name):

@@ -140,6 +140,38 @@ def test_run_stack_cosim_matches_reference(fb_kw):
         assert (got["dmm"]["ap"].throttle < 1.0).any()
 
 
+@pytest.mark.parametrize("n_dram", [1, 2])
+def test_run_stack_cosim_mg_matches_reference(n_dram):
+    """The whole path with the multigrid inner solve (``n_mg`` V-cycles a
+    step on a hierarchy built once per replay, batched over the cases)."""
+    kw = dict(workloads=("dmm",), n_dram=n_dram, grid_n=8, n_intervals=12,
+              steps_per_interval=1, solver="mg")
+    ref = jfb.run_stack_cosim(**kw)
+    got = tfb.run_stack_cosim(device="cpu", **kw)
+    labels = ["dmm/ap", "dmm/simd"]
+    _assert_reports_close({f"dmm/{m}": ref["dmm"][m] for m in ("ap", "simd")},
+                          {f"dmm/{m}": got["dmm"][m] for m in ("ap", "simd")},
+                          labels)
+    for m in ("ap", "simd"):
+        assert got["dmm"][m].converged
+
+
+def test_replay_cases_mg_matches_reference(ref_counters):
+    """replay_cases(solver="mg") on the trio's carried cases."""
+    jcases = _cases(jfb, jcosim, j_dram_on_logic(2), ref_counters)
+    dt = 0.25 / N_INT
+    kw = dict(steps_per_interval=1, solver="mg", n_mg=2)
+    ref = jfb.replay_cases(jcases, j_dram_on_logic(2), jfb.FeedbackParams(),
+                           GRID_N, dt, **kw)
+    carried = [(label, interop.case_from_reference(
+        [leaves[0], leaves[1], leaves[2], leaves[3],
+         {k: np.asarray(v) for k, v in leaves[4].items()},
+         np.asarray(leaves[5])], "cpu")) for label, leaves in jcases]
+    got = tfb.replay_cases(carried, t_dram_on_logic(2), tfb.FeedbackParams(),
+                           GRID_N, dt, device="cpu", **kw)
+    _assert_reports_close(ref, got, [label for label, _ in jcases])
+
+
 def test_replay_is_batch_of_single_replays():
     """closed_loop_replay is the B = 1 case of closed_loop_batch."""
     from repro_torch.core import thermal
@@ -190,9 +222,10 @@ def test_unported_options_raise():
         tfb.FeedbackParams(faults=object())
     with pytest.raises(ValueError):
         tfb.FeedbackParams(dtm_floor=0.0)
-    for kw in ({"solver": "mg"}, {"n_shards": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfb.run_stack_cosim(device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfb.run_stack_cosim(device="cpu", n_shards=2)
+    with pytest.raises(ValueError, match="unknown solver"):
+        tfb.run_stack_cosim(device="cpu", solver="mgcg")
     x = torch.zeros((1, 2, 2, 2))
     with pytest.raises(NotImplementedError, match="dt_scale"):
         tfb.closed_loop_replay(x, x[0], x[0], torch.zeros(2),

@@ -32,7 +32,7 @@ def test_port_imports_neither_jax_nor_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 25          # every module of the slice was imported
+    assert n_modules >= 31          # every module of both slices was imported
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
@@ -61,3 +61,28 @@ def test_entry_points_raise_without_a_card(no_card):
         Grid(die_w=1e-3, ny=4, nx=4).fields()
     with pytest.raises(RuntimeError, match="cuda"):
         Grid(die_w=1e-3, ny=4, nx=4).capacity_field()
+
+
+def test_slice_two_entry_points_raise_without_a_card(no_card):
+    """The steady solves, the transients, the §4 comparison and the
+    multigrid replay raise unless they are asked for the CPU."""
+    import numpy as np
+
+    from repro_torch.core import floorplan, thermal
+    from repro_torch.stack import feedback
+    grid = thermal.Grid(die_w=1e-3, ny=8, nx=8)
+    power = np.full((grid.n_die_layers, 8, 8), 1e-3, np.float32)
+    for solver in thermal.SOLVERS:
+        with pytest.raises(RuntimeError, match="cuda"):
+            thermal.steady_state(power, grid, solver=solver)
+    with pytest.raises(RuntimeError, match="cuda"):
+        thermal.transient_solve_implicit(power, grid, 0.01, 2, solver="mg")
+    with pytest.raises(RuntimeError, match="cuda"):
+        thermal.transient_solve(power, grid, 1e-3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        floorplan.thermal_comparison(grid_ap=64, grid_simd=16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        floorplan.ap_block_zoom(floorplan.APFloorplan(), 4.0, grid_n=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        feedback.run_stack_cosim(workloads=("dmm",), n_dram=1, grid_n=4,
+                                 n_intervals=2, solver="mg")
