@@ -613,9 +613,12 @@ def check_smoother(results):
             check(torch.equal(got, want), f"smoother kernel differs from "
                   f"plain at {tuple(T.shape)}, colour {color}: max |diff| "
                   f"= {err}")
+        # every cell reads T and writes out (8 B); a coloured cell also
+        # reads b, seven fields and d_extra (36 B); the other colour copies T
         cells = T.numel()
         coloured = cells // 2
-        b_ms, b_by = bound_ms(44.0 * cells, 23.0 * coloured)
+        b_ms, b_by = bound_ms(8.0 * cells + 36.0 * coloured,
+                              23.0 * coloured)
         ms = cuda_ms(lambda: ops.rb_line_sweep(T, b, F, d, 0), reps[label])
         plain = cuda_ms(lambda: ops.rb_line_sweep_plain(T, b, F, d, 0),
                         max(reps[label] // 20, 10))

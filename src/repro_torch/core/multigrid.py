@@ -152,9 +152,9 @@ line_solve = smooth_ops.line_solve
 rb_line_sweep = smooth_ops.rb_line_sweep
 
 
-def _smooth(T, b, F, d_extra, colors, sweep_fn):
+def _smooth(T, b, F, d_extra, colors):
     for c in colors:
-        T = sweep_fn(T, b, F, d_extra, c)
+        T = rb_line_sweep(T, b, F, d_extra, c)
     return T
 
 
@@ -209,14 +209,17 @@ def coarse_solve_fn(levels: list):
 
 
 def v_cycle(levels: list, b: torch.Tensor, nu1: int = 1, nu2: int = 1,
-            lvl: int = 0, sweep_fn=rb_line_sweep, prolong_fn=prolong,
-            coarse_solve=None) -> torch.Tensor:
+            lvl: int = 0, coarse_solve=None) -> torch.Tensor:
     """One V(nu1, nu2) cycle for ``A e = b`` from a zero initial guess.
 
     Pre-smoothing sweeps red->black, post-smoothing black->red, and the
     coarsest level is solved exactly (``coarse_solve``; a palindromic
     block of line sweeps when None), so with injection prolongation the
     cycle is symmetric positive definite — a valid CG preconditioner.
+    Every half-sweep is :func:`rb_line_sweep`, so the tensor's device
+    picks the smoother kernel or its plain version (the reference's
+    ``sweep_fn``/``prolong_fn`` hooks, which carried ``use_pallas``, are
+    not ported).
     """
     F, d_extra = levels[lvl]
     T = torch.zeros_like(b)
@@ -224,18 +227,17 @@ def v_cycle(levels: list, b: torch.Tensor, nu1: int = 1, nu2: int = 1,
         if coarse_solve is not None:
             return coarse_solve(b)
         for _ in range(N_COARSE_SWEEPS):
-            T = _smooth(T, b, F, d_extra, (0, 1), sweep_fn)
+            T = _smooth(T, b, F, d_extra, (0, 1))
         for _ in range(N_COARSE_SWEEPS):
-            T = _smooth(T, b, F, d_extra, (1, 0), sweep_fn)
+            T = _smooth(T, b, F, d_extra, (1, 0))
         return T
     for _ in range(nu1):
-        T = _smooth(T, b, F, d_extra, (0, 1), sweep_fn)
+        T = _smooth(T, b, F, d_extra, (0, 1))
     r = b - operator(T, F, d_extra)
-    e = v_cycle(levels, restrict(r), nu1, nu2, lvl + 1, sweep_fn,
-                prolong_fn, coarse_solve)
-    T = T + prolong_fn(e)
+    e = v_cycle(levels, restrict(r), nu1, nu2, lvl + 1, coarse_solve)
+    T = T + prolong(e)
     for _ in range(nu2):
-        T = _smooth(T, b, F, d_extra, (1, 0), sweep_fn)
+        T = _smooth(T, b, F, d_extra, (1, 0))
     return T
 
 
@@ -268,7 +270,7 @@ def mg_solve_fields(b: torch.Tensor, F: dict, d_extra=0.0, tol: float = 1e-8,
 
 
 def iterate_fixed(levels: list, b: torch.Tensor, n_cycles: int,
-                  nu1: int = 1, nu2: int = 1, sweep_fn=rb_line_sweep,
+                  nu1: int = 1, nu2: int = 1,
                   coarse_solve=None) -> torch.Tensor:
     """Fixed-cycle-count V-cycle iteration on a pre-built hierarchy:
     uniform cost per call and no host sync — the MG counterpart of
@@ -277,8 +279,7 @@ def iterate_fixed(levels: list, b: torch.Tensor, n_cycles: int,
     Fd, dd = levels[0]
     x, r = torch.zeros_like(b), b
     for _ in range(n_cycles):
-        e = v_cycle(levels, r, nu1, nu2, sweep_fn=sweep_fn,
-                    coarse_solve=coarse_solve)
+        e = v_cycle(levels, r, nu1, nu2, coarse_solve=coarse_solve)
         x = x + e
         r = r - operator(e, Fd, dd)
     return x
@@ -288,7 +289,7 @@ def mg_fixed(b: torch.Tensor, F: dict, d_extra=0.0, n_cycles: int = 3,
              nu1: int = 1, nu2: int = 1) -> torch.Tensor:
     """Convenience wrapper over :func:`iterate_fixed`."""
     levels = build_levels(F, d_extra)
-    return iterate_fixed(levels, b, n_cycles, nu1, nu2, rb_line_sweep,
+    return iterate_fixed(levels, b, n_cycles, nu1, nu2,
                          coarse_solve_fn(levels))
 
 

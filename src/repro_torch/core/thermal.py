@@ -266,8 +266,7 @@ def apply_operator_fields(T: torch.Tensor, F: dict) -> torch.Tensor:
 
 
 def _diag_fields(F: dict) -> torch.Tensor:
-    d = (F["gx_lf"] + F["gx_rt"] + F["gy_up"] + F["gy_dn"]
-         + F["gz_up"] + F["gz_dn"] + F["g_pkg"])
+    d = stencil_ops.face_diagonal(F)
     return torch.where(d > 0, d, 1.0)     # void cells: identity rows
 
 

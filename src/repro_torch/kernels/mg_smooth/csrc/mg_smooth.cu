@@ -15,15 +15,17 @@
 // elsewhere.  Lateral neighbours past an edge are the cell itself.  The
 // output is out of place, so every column reads the frozen iterate.
 //
-// What bounds it on the H100: bytes.  Each cell reads T, b, seven fields
-// and d_extra and writes one value: 44 bytes against about 25 flops.  The
-// design moves nothing more: one thread owns one (b, y, x) column and
-// walks its L <= MAX_LAYERS layers; the Thomas coefficients of the
-// forward pass stay in registers (the loops unroll to the compile-time
-// cap, so every index is a constant), and the four lateral neighbours are
-// clamped loads that adjacent threads share through L1/L2.  Threads of a
-// warp own adjacent x, so every load and the store are coalesced.  A
-// thread of the other colour only copies T.
+// What bounds it on the H100: bytes.  Every cell reads T and writes one
+// value (8 bytes); a cell of the swept colour also reads b, seven fields
+// and d_extra (36 bytes more, against about 23 flops), while a cell of the
+// other colour only copies T.  Half the cells are swept, so the half-sweep
+// needs about 26 bytes a cell.  The design moves nothing more: one thread
+// owns one (b, y, x) column and walks its L <= MAX_LAYERS layers; the
+// Thomas coefficients of the forward pass stay in registers (the loops
+// unroll to the compile-time cap, so every index is a constant), and the
+// four lateral neighbours are clamped loads that adjacent threads share
+// through L1/L2.  Threads of a warp own adjacent x, so every load and the
+// store are coalesced.
 //
 // The sums and the guards follow the plain PyTorch version
 // (ops.rb_line_sweep_plain, after the Pallas kernel's order) and the

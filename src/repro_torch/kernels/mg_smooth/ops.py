@@ -14,7 +14,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.thermal_stencil.ops import FIELD_KEYS, _shift
+from repro_torch.kernels.thermal_stencil.ops import (
+    FIELD_KEYS, face_diagonal, shift)
 
 #: most layers a column may have on the card (the kernel keeps the
 #: Thomas coefficients of a column in registers up to this cap)
@@ -32,8 +33,7 @@ def parity(ny: int, nx: int, device=None) -> torch.Tensor:
 def diagonal(F: dict, d_extra) -> torch.Tensor:
     """Exact diagonal of the level operator G + diag(d_extra) (0 for void
     cells), summed in the Pallas kernel's order."""
-    return (F["gx_lf"] + F["gx_rt"] + F["gy_up"] + F["gy_dn"]
-            + F["gz_up"] + F["gz_dn"] + F["g_pkg"] + d_extra)
+    return face_diagonal(F) + d_extra
 
 
 def line_solve(rhs: torch.Tensor, F: dict, d_extra) -> torch.Tensor:
@@ -70,8 +70,8 @@ def rb_line_sweep_plain(T: torch.Tensor, b: torch.Tensor, F: dict, d_extra,
     """One half-sweep in plain PyTorch: update the columns whose in-plane
     parity is ``color`` by their exact z-line solve, lateral neighbours
     frozen at ``T``.  ``T`` is [L, NY, NX] or [B, L, NY, NX]."""
-    rhs = (b + F["gx_lf"] * _shift(T, -1, -1) + F["gx_rt"] * _shift(T, -1, 1)
-           + F["gy_up"] * _shift(T, -2, -1) + F["gy_dn"] * _shift(T, -2, 1))
+    rhs = (b + F["gx_lf"] * shift(T, -1, -1) + F["gx_rt"] * shift(T, -1, 1)
+           + F["gy_up"] * shift(T, -2, -1) + F["gy_dn"] * shift(T, -2, 1))
     u = line_solve(rhs, F, d_extra)
     mask = parity(T.shape[-2], T.shape[-1], T.device) == color
     return torch.where(mask, u, T)

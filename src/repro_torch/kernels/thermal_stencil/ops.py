@@ -23,7 +23,7 @@ from repro_torch.kernels import _build
 FIELD_KEYS = ("gx_lf", "gx_rt", "gy_up", "gy_dn", "gz_up", "gz_dn", "g_pkg")
 
 
-def _shift(T: torch.Tensor, dim: int, step: int) -> torch.Tensor:
+def shift(T: torch.Tensor, dim: int, step: int) -> torch.Tensor:
     """Neighbour ``step`` (-1 before / +1 after) along ``dim`` with the
     edge cell replicated."""
     n = T.shape[dim]
@@ -32,12 +32,20 @@ def _shift(T: torch.Tensor, dim: int, step: int) -> torch.Tensor:
     return torch.cat([T.narrow(dim, 1, n - 1), T.narrow(dim, n - 1, 1)], dim)
 
 
+def face_diagonal(F: dict) -> torch.Tensor:
+    """Sum of a cell's seven face conductances: the diagonal of G (0 for
+    void cells).  The one place that fixes the order of its terms, which
+    the smoother kernel repeats."""
+    return (F["gx_lf"] + F["gx_rt"] + F["gy_up"] + F["gy_dn"]
+            + F["gz_up"] + F["gz_dn"] + F["g_pkg"])
+
+
 def apply_operator_fields_plain(T: torch.Tensor, F: dict) -> torch.Tensor:
     """y = G T over the last three dims ``[..., L, NY, NX]`` (plain
     PyTorch; the terms in the reference's order)."""
-    t_lf, t_rt = _shift(T, -1, -1), _shift(T, -1, 1)
-    t_up, t_dn = _shift(T, -2, -1), _shift(T, -2, 1)
-    l_up, l_dn = _shift(T, -3, -1), _shift(T, -3, 1)
+    t_lf, t_rt = shift(T, -1, -1), shift(T, -1, 1)
+    t_up, t_dn = shift(T, -2, -1), shift(T, -2, 1)
+    l_up, l_dn = shift(T, -3, -1), shift(T, -3, 1)
     return (F["gx_lf"] * (T - t_lf) + F["gx_rt"] * (T - t_rt)
             + F["gy_up"] * (T - t_up) + F["gy_dn"] * (T - t_dn)
             + F["gz_up"] * (T - l_up) + F["gz_dn"] * (T - l_dn)
@@ -85,10 +93,10 @@ def apply_operator_plain(T: torch.Tensor, g_lat: torch.Tensor,
     per-layer ``[L]`` vectors of the uniform stencil (plain PyTorch; the
     terms in the reference's order)."""
     col = lambda v: v[:, None, None]
-    t_up, t_dn = _shift(T, -2, -1), _shift(T, -2, 1)
-    t_lf, t_rt = _shift(T, -1, -1), _shift(T, -1, 1)
+    t_up, t_dn = shift(T, -2, -1), shift(T, -2, 1)
+    t_lf, t_rt = shift(T, -1, -1), shift(T, -1, 1)
     y = col(g_lat) * (4.0 * T - t_up - t_dn - t_lf - t_rt)
-    l_up, l_dn = _shift(T, -3, -1), _shift(T, -3, 1)
+    l_up, l_dn = shift(T, -3, -1), shift(T, -3, 1)
     return (y + col(gv_up) * (T - l_up) + col(gv_dn) * (T - l_dn)
             + col(g_pkg) * T)
 
