@@ -47,13 +47,36 @@ these phases, each printing one line with its result and seconds:
 12. the legacy implicit transient, ``transient_solve_implicit`` with
     ``solver="pcg"`` (the uniform stencil) and ``"mg"`` on the paper
     stack's 256^2 AP die: each final maximum within 0.05 °C of the JAX
-    reference's.
+    reference's;
+13. the op-group megakernel against its plain version, bit for bit
+    (planes, tag, matched): a sort round (conditional, 28 ops) at 32768
+    and at 32 lanes, a bucketed multiply schedule as an all-PASS group at
+    32768 lanes, and spmv's 512-op probe batch with its padded probes
+    disabled; timed with CUDA events beside the bound and the plain time;
+14. the suite trace capture, ``registry.trace_counters(w, 1024, mode=m)``
+    for sort, knn, hist and spmv in the eager, device and megakernel modes
+    on the card and in device mode on the host: answers exact, counters
+    and trace events identical across the four runs, cycles and energy
+    equal to the JAX reference's; the megakernel launched in megakernel
+    mode only, the pass-schedule kernel in device mode;
+15. the paper-size sort, ``ap_sort`` of 2^20 random bytes in megakernel
+    mode: sorted exactly, cycles and energy equal to the JAX reference's;
+    then sort at n = 2048 in device and megakernel mode, printed;
+16. the suite stack path, ``run_stack_cosim(("sort", "knn", "hist",
+    "spmv"), n_dram=2, grid_n=24, n_intervals=48)``: every report
+    finite, converged wherever the JAX reference converged, each case's
+    verdict equal to the reference's and its maximum DRAM peak within
+    0.1 °C of it — sort/ap, whose trajectory runs through the DTM ramp,
+    within 1 °C (``PEAK_TOL_EXCEPTIONS_C``); then sort/ap again with 12
+    Picard iterations, printed beside the reference's.
 
-Phases 5 and 9-12 each set every kernel's launch counter to 0 just before
-they drive their path and read the counters just after; a kernel of the
-path that was not launched fails the phase.
+Phases 5, 9-12 and 14-16 each set every kernel's launch counter to 0 just
+before they drive their path and read the counters just after; a kernel
+of the path that was not launched fails the phase.
 
-The line before the last is a JSON object of per-kernel measurements; the
+The line before the last is a JSON object of per-kernel measurements (the
+megakernel's row holds the sort round at 32768 lanes; its launches are
+those of phase 14's megakernel-mode captures); the
 last line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before those lines.  Without a CUDA card, or outside a checkout of the
 repository, it exits non-zero and prints no result.  The full results also
@@ -98,6 +121,43 @@ REFERENCE_MG_DRAM_PEAK_C = {
 #: final maximum [°C] on the paper stack's 256^2 AP die (phase 12).
 REFERENCE_TRANSIENT_MAX_C = {"pcg": 48.3011, "mg": 48.2839}
 STEADY_TOL_C = 0.05
+#: ``registry.trace_counters(w, 1024, mode=m)`` cycles and energy of the
+#: suite workloads, the same in every mode (phase 14);
+REFERENCE_SUITE_TRACE = {
+    "sort": (5470, 5532705.199999973), "knn": (574, 594607.2000000001),
+    "hist": (64, 290918.39999999997), "spmv": (703, 2268539.0000000005)}
+#: ``sort.ap_sort(np.random.default_rng(0).integers(0, 256, 2**20,
+#: dtype=np.uint64), m=8, mode="megakernel")`` cycles and energy (phase 15);
+REFERENCE_PAPER_SORT = (5632, 5829177572.900035)
+#: ``feedback.run_stack_cosim(("sort", "knn", "hist", "spmv"), n_dram=2,
+#: grid_n=24, n_intervals=48)``: maximum DRAM peak [°C], verdict and
+#: whether the Picard loop converged, per case (phase 16).  The reference's
+#: sort/ap ends at a Picard residual of 0.815 °C on interval 42 (ROADMAP
+#: Queue 3, item 5).
+REFERENCE_SUITE_STACK = {
+    ("sort", "ap"): (122.3607, "BLOCKED", False),
+    ("sort", "simd"): (59.8999, "OK", True),
+    ("knn", "ap"): (74.7129, "OK", True),
+    ("knn", "simd"): (65.2182, "OK", True),
+    ("hist", "ap"): (138.0577, "BLOCKED", True),
+    ("hist", "simd"): (62.3800, "OK", True),
+    ("spmv", "ap"): (68.8197, "OK", True),
+    ("spmv", "simd"): (142.4915, "BLOCKED", True),
+}
+SUITE = ("sort", "knn", "hist", "spmv")
+#: Cases whose DRAM peak is held to a wider bound than PEAK_TOL_C, and
+#: why (ROADMAP Queue 3, item 5): sort/ap passes through the DTM ramp on
+#: its last six intervals, where the sampled ramp multiplies float32
+#: differences, and the reference's own Picard loop stops 0.815 °C short
+#: of converged on interval 42.  Six computations of the case (both
+#: packages on the CPU, and the port on the card, each with 6 and with 12
+#: Picard iterations) put its peak between 122.07 and 123.03 °C, every
+#: one BLOCKED for 0.0417 s.
+PEAK_TOL_EXCEPTIONS_C = {("sort", "ap"): 1.0}
+#: ``run_stack_cosim(("sort",), n_dram=2, grid_n=24, n_intervals=48,
+#: fb=FeedbackParams(n_picard=12))`` sort/ap maximum DRAM peak [°C] of the
+#: JAX reference, where its Picard loop converges (phase 16, printed).
+REFERENCE_SORT_AP_PICARD12_C = 123.0300
 
 #: H100 SXM peaks at the full 700 W limit (NVIDIA data sheet): HBM3 rate,
 #: and the non-tensor 32-bit rate, used for both float32 and the 32-bit
@@ -300,12 +360,14 @@ def _kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name; each carries the
     ``.launches`` counter it adds one to where it launches its kernel."""
     from repro_torch.kernels.ap_match import ops as ap_ops
+    from repro_torch.kernels.ap_megakernel import ops as mk_ops
     from repro_torch.kernels.mg_smooth import ops as mg_ops
     from repro_torch.kernels.thermal_stencil import ops as st_ops
     return {"thermal_stencil": st_ops.apply_operator_fields,
             "ap_match": ap_ops.run_schedule,
             "mg_smooth": mg_ops.rb_line_sweep,
-            "thermal_stencil_uniform": st_ops.apply_operator}
+            "thermal_stencil_uniform": st_ops.apply_operator,
+            "ap_megakernel": mk_ops.run_group}
 
 
 def reset_launches() -> None:
@@ -322,17 +384,30 @@ def check_launched(launches: dict, names, what: str) -> None:
         check(launches[name] > 0, f"{what} launched no {name} kernel")
 
 
-def _stack_path(results, key: str, solver: str, reference: dict):
-    """Drive ``run_stack_cosim`` for the trio at the main path's sizes
+TRIO = ("dmm", "fft", "bs")
+
+
+def _trio_expected(peaks: dict) -> dict:
+    """(peak, verdict, converged) per case for the trio: AP OK / SIMD
+    BLOCKED, converged everywhere, as the JAX reference has it."""
+    return {k: (v, "OK" if k[1] == "ap" else "BLOCKED", True)
+            for k, v in peaks.items()}
+
+
+def _stack_path(results, key: str, solver: str, expected: dict,
+                workloads=TRIO):
+    """Drive ``run_stack_cosim`` for ``workloads`` at the main path's sizes
     with ``solver``, the AP trace capture (through run_stack_cosim's own
-    device-keyed cache) timed apart from the replay; check and record it.
-    Returns the launches of this run, counted from 0."""
+    device-keyed cache) timed apart from the replay; check each case
+    against ``expected[(w, machine)] = (DRAM peak, verdict, converged)``
+    of the JAX reference and record it.  Returns the launches of this
+    run, counted from 0."""
     import numpy as np
     from repro_torch.core import cosim
     from repro_torch.core import models as M
     from repro_torch.stack import feedback
 
-    workloads, n_intervals = ("dmm", "fft", "bs"), 48
+    n_intervals = 48
     cosim._ap_workload_trace.cache_clear()
     reset_launches()
     t0 = time.perf_counter()
@@ -350,7 +425,7 @@ def _stack_path(results, key: str, solver: str, reference: dict):
                    f"the {solver} stack path")
 
     say("  workload machine  DRAM peak C  reference C   delta C  "
-        "above 85C s  converged  verdict")
+        "above 85C s  converged  verdict (reference)")
     cases = {}
     for w in workloads:
         for machine in ("ap", "simd"):
@@ -360,30 +435,34 @@ def _stack_path(results, key: str, solver: str, reference: dict):
                 check(bool(np.isfinite(getattr(r, name)).all()),
                       f"{w}/{machine}: {name} not finite")
             peak = float(r.dram_peak_C.max())
-            ref = reference[(w, machine)]
+            ref, ref_verdict, ref_converged = expected[(w, machine)]
             above = r.dram_time_above_limit_s
             verdict = "OK" if above == 0.0 else "BLOCKED"
             cases[f"{w}/{machine}"] = dict(
                 dram_peak_C=peak, reference_C=ref, delta_C=peak - ref,
                 above_85C_s=above, converged=r.converged,
-                residual_C=float(r.residual_C.max()), verdict=verdict)
+                reference_converged=ref_converged,
+                residual_C=float(r.residual_C.max()), verdict=verdict,
+                reference_verdict=ref_verdict)
             say(f"  {w:8s} {machine:7s} {peak:11.4f} {ref:11.4f} "
                 f"{peak - ref:+9.4f} {above:12.4f} {str(r.converged):>10s}"
-                f"  {verdict}")
+                f"  {verdict} ({ref_verdict})")
     for label, c in cases.items():
-        check(c["converged"], f"{label}: Picard residual {c['residual_C']}"
-              " above the 0.05 C bar")
-        check(abs(c["delta_C"]) <= PEAK_TOL_C,
+        check(c["converged"] or not c["reference_converged"],
+              f"{label}: Picard residual {c['residual_C']} above the 0.05 C "
+              "bar")
+        tol = PEAK_TOL_EXCEPTIONS_C.get(tuple(label.split("/")), PEAK_TOL_C)
+        check(abs(c["delta_C"]) <= tol,
               f"{label}: DRAM peak {c['dram_peak_C']:.4f} C is "
-              f"{c['delta_C']:+.4f} C from the reference")
-    for w in workloads:
-        check(cases[f"{w}/ap"]["verdict"] == "OK"
-              and cases[f"{w}/simd"]["verdict"] == "BLOCKED",
-              f"{w}: verdict is AP {cases[f'{w}/ap']['verdict']} / SIMD "
-              f"{cases[f'{w}/simd']['verdict']}, not AP OK / SIMD BLOCKED")
-    say(f"  verdict: AP OK / SIMD BLOCKED for {', '.join(workloads)}; "
-        f"capture {t1 - t0:.2f} s, replay {t2 - t1:.2f} s; launches "
-        f"{launches}")
+              f"{c['delta_C']:+.4f} C from the reference (bound {tol} C)")
+        check(c["verdict"] == c["reference_verdict"],
+              f"{label}: verdict {c['verdict']}, the reference's "
+              f"{c['reference_verdict']}")
+    verdicts = "; ".join(
+        f"{w} AP {cases[f'{w}/ap']['verdict']} / SIMD "
+        f"{cases[f'{w}/simd']['verdict']}" for w in workloads)
+    say(f"  verdicts as the reference's: {verdicts}; capture "
+        f"{t1 - t0:.2f} s, replay {t2 - t1:.2f} s; launches {launches}")
     results[key] = dict(capture_s=t1 - t0, replay_s=t2 - t1,
                         launches=launches, cases=cases)
     return launches
@@ -391,7 +470,8 @@ def _stack_path(results, key: str, solver: str, reference: dict):
 
 @phase("5 main path")
 def main_path(results):
-    return _stack_path(results, "main_path", "pcg", REFERENCE_DRAM_PEAK_C)
+    return _stack_path(results, "main_path", "pcg",
+                       _trio_expected(REFERENCE_DRAM_PEAK_C))
 
 
 def _self_device_us(avg) -> float:
@@ -493,6 +573,7 @@ def profile(results):
     import torch
     from repro_torch.core.engine import schedule_tensors
     from repro_torch.kernels.ap_match import ops as ap_ops
+    from repro_torch.kernels.ap_megakernel import ops as mk_ops
     from repro_torch.kernels.mg_smooth import ops as mg_ops
     from repro_torch.kernels.thermal_stencil import ops as st_ops
 
@@ -520,6 +601,14 @@ def profile(results):
     T, vecs = _uniform_case()
     jobs.append(("uniform_large", "stencil_uniform", 20,
                  lambda: st_ops.apply_operator(T, *vecs)))
+    mk_cases = _megakernel_cases()
+    for label, name in (("sort_round_32768", "group_solo"),
+                        ("mul_pass_32768", "group_tiled")):
+        group, planes, tag, en = mk_cases[label]
+        dg = mk_ops.device_group(group, "cuda")
+        jobs.append((f"mk_{label}", name, 20,
+                     lambda p=planes, t=tag, g=dg, e=en:
+                     mk_ops.run_group(p, t, g, e)))
     for key, name, n, fn in jobs:
         us = _profiled_us(fn, n, name)
         results.setdefault(key, {})["device_ms"] = \
@@ -759,7 +848,8 @@ def paper_comparison(results):
 
 @phase("11 mg stack path")
 def mg_path(results):
-    launches = _stack_path(results, "mg_path", "mg", REFERENCE_MG_DRAM_PEAK_C)
+    launches = _stack_path(results, "mg_path", "mg",
+                           _trio_expected(REFERENCE_MG_DRAM_PEAK_C))
     pcg, mg = results["main_path"], results["mg_path"]
     say(f"  mg replay {mg['replay_s']:.2f} s against the pcg replay's "
         f"{pcg['replay_s']:.2f} s (phase 5)")
@@ -802,6 +892,255 @@ def legacy_transient(results):
             f"{ref:.4f}), {sec:.2f} s; launches {launches}")
     results["legacy_transient"] = rows
     return rows["pcg"]["launches"]
+
+
+_MK_CASES: dict = {}
+
+
+def _megakernel_cases() -> dict:
+    """The op groups of phase 13 with their inputs on the card, built
+    once: label -> (group, planes, tag, enabled or None).
+
+    * a sort round (``_min_extract_group`` for m = 8: 2 copy passes,
+      3 x 8 narrowing ops, 2 tail ops; conditional) at 32768 lanes, the
+      paper's 2^20 words, and at 32 lanes, the 1024-element trace;
+    * the m = 6 multiply schedule bucketed as ``APEngine.run`` buckets it,
+      as an all-PASS group (unconditional) at 32768 lanes;
+    * spmv's probe batch at 1024 nonzeros: 32 rows x 12 product bits,
+      bucketed to 512 CMP ops of 8 columns, the padded 128 disabled.
+    """
+    if _MK_CASES:
+        return _MK_CASES
+    import numpy as np
+    import torch
+    from repro_torch.core import isa
+    from repro_torch.core.bitplane import Field
+    from repro_torch.kernels.ap_megakernel.ref import OpGroup
+    from repro_torch.workloads import _device
+    val, active, cand = Field(0, 8), Field(8, 1), Field(9, 1)
+    sort_round = _device._min_extract_group(isa.copy(cand, active), val,
+                                            active, cand, readout=False)
+    tables, _ = _mul_schedule_tables(0, 6, 12, 13, 25)
+    r_w, m, n_rows = 5, 6, 32          # spmv's row, a, x, prod fields
+    prod0 = r_w + 2 * m
+    cols, keys, n_probes, _ = _device._pad_probes(
+        [[*range(r_w), prod0 + b] for _ in range(n_rows)
+         for b in range(2 * m)],
+        [[(i >> rb) & 1 for rb in range(r_w)] + [1] for i in range(n_rows)
+         for _ in range(2 * m)])
+    for label, group, n_bits, n_lanes, enabled in (
+            ("sort_round_32768", sort_round, 10, 32768, None),
+            ("sort_round_32", sort_round, 10, 32, None),
+            ("mul_pass_32768", OpGroup.from_schedule(*tables), 32, 32768,
+             None),
+            ("spmv_probes_32", OpGroup.probes(cols, keys), 30, 32,
+             np.arange(cols.shape[0]) < n_probes)):
+        rng = np.random.default_rng(n_bits + n_lanes)
+        words = rng.integers(-2 ** 31, 2 ** 31, (n_bits + 1, n_lanes),
+                             dtype=np.int64).astype(np.int32)
+        planes = torch.from_numpy(words[:-1]).cuda()
+        tag = torch.from_numpy(words[-1]).cuda()
+        en = None if enabled is None else torch.from_numpy(enabled).cuda()
+        _MK_CASES[label] = (group, planes, tag, en)
+    return _MK_CASES
+
+
+def _group_traffic(group, executed, n_lanes: int):
+    """(bytes, operations, per-op streamed bytes) of one group execution.
+
+    Bytes count each input and output once: every column the executed
+    ops read or write is read, every column they write is written, the
+    tag is read and written, and the tables and counts once.  Operations
+    are about 3 a compare column, 3 a write column and 2 for the
+    popcount, per lane and executed op.  The streamed count charges every
+    executed op its own columns, (Kc + 2 Kw + 2) words a lane, as a
+    kernel that kept nothing on chip between ops would move."""
+    from repro_torch.kernels.ap_megakernel.ref import OP_PASS, OP_WRITE
+    read, written = set(), set()
+    for p in executed.nonzero()[0]:
+        if group.op[p] != OP_WRITE:
+            read |= set(group.cmp_cols[p].tolist())
+        if group.op[p] in (OP_PASS, OP_WRITE):
+            written |= set(group.w_cols[p].tolist())
+    P, kc = group.cmp_cols.shape
+    kw = group.w_cols.shape[1]
+    n_ex = int(executed.sum())
+    n_bytes = 4 * n_lanes * (len(read | written) + len(written) + 2) \
+        + 4 * P * (3 + 2 * kc + 2 * kw)
+    n_ops = n_ex * n_lanes * (3 * kc + 3 * kw + 2)
+    streamed = 4 * n_lanes * n_ex * (kc + 2 * kw + 2)
+    return n_bytes, n_ops, streamed
+
+
+@phase("13 megakernel vs plain")
+def check_megakernel(results):
+    import torch
+    from repro_torch.kernels.ap_megakernel import ops, ref
+    reps = {"sort_round_32768": 50, "sort_round_32": 200,
+            "mul_pass_32768": 50, "spmv_probes_32": 100}
+    for label, (group, planes, tag, en) in _megakernel_cases().items():
+        dg = ops.device_group(group, "cuda")
+        got_p, got_t, got_m = ops.run_group(planes, tag, dg, en)
+        want_p, want_t, want_m, executed = ref.group_scan_plain(
+            planes, tag, group.tables(), en)
+        torch.cuda.synchronize()
+        for what, a, b in (("planes", got_p, want_p), ("tag", got_t, want_t),
+                           ("matched", got_m, want_m)):
+            check(torch.equal(a, b), f"megakernel differs from plain at "
+                  f"{label}: {what}")
+        n_lanes = planes.shape[1]
+        n_bytes, n_ops, streamed = _group_traffic(
+            group, executed.cpu().numpy(), n_lanes)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        ms = cuda_ms(lambda: ops.run_group(planes, tag, dg, en),
+                     reps[label])
+        plain = cuda_ms(lambda: ref.group_scan_plain(
+            planes, tag, group.tables(), en), 2)
+        P, kc = group.cmp_cols.shape
+        kw = group.w_cols.shape[1]
+        results.setdefault(f"mk_{label}", {}).update(
+            n_lanes=n_lanes, ops=P, executed=int(executed.sum()), kc=kc,
+            kw=kw, conditional=group.conditional, max_abs_err=0,
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            streamed_bound_ms=streamed / HBM_BYTES_PER_S * 1e3,
+            library_ms=None)
+        say(f"  run_group {label}: {P} ops ({int(executed.sum())} run, "
+            f"Kc={kc}, Kw={kw}, {'conditional' if group.conditional else 'tiled'}"
+            f"): bit-identical; kernel {ms * 1e3:.2f} us, plain "
+            f"{plain * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
+            f"per-op streamed {streamed / HBM_BYTES_PER_S * 1e6:.2f} us")
+
+
+_SUITE_ENTRY = {"sort": ("sort", "ap_sort"), "knn": ("knn", "ap_knn"),
+                "hist": ("histogram", "ap_histogram"),
+                "spmv": ("spmv", "ap_spmv")}
+
+
+def _suite_answer(w: str, args, kw, result) -> bool:
+    """Whether a suite workload's answer equals its NumPy oracle's."""
+    import importlib
+    import numpy as np
+    mod = importlib.import_module(f"repro_torch.workloads."
+                                  f"{_SUITE_ENTRY[w][0]}")
+    want = {"sort": lambda: mod.reference(args[0]),
+            "knn": lambda: mod.reference(args[0], args[1], kw["k"]),
+            "hist": lambda: mod.reference(args[0], kw["n_bins"], m=kw["m"]),
+            "spmv": lambda: mod.reference(*args[:5])}[w]()
+    return bool(np.array_equal(np.asarray(result), want))
+
+
+@phase("14 suite trace capture")
+def suite_capture(results):
+    import importlib
+    from repro_torch.workloads import registry
+    runs = (("eager", "cuda"), ("device", "cuda"), ("megakernel", "cuda"),
+            ("device", "cpu"))
+    rows, mk_launches = {}, 0
+    for w in SUITE:
+        mod = importlib.import_module(f"repro_torch.workloads."
+                                      f"{_SUITE_ENTRY[w][0]}")
+        entry = getattr(mod, _SUITE_ENTRY[w][1])
+        first = None
+        for mode, dev in runs:
+            calls = []
+
+            def spy(*a, **kw):
+                out = entry(*a, **kw)
+                calls.append((a, kw, out[0]))
+                return out
+            setattr(mod, _SUITE_ENTRY[w][1], spy)
+            try:
+                reset_launches()
+                t0 = time.perf_counter()
+                ctr = registry.trace_counters(w, 1024, mode=mode, device=dev)
+                sec = time.perf_counter() - t0
+                launches = read_launches()
+            finally:
+                setattr(mod, _SUITE_ENTRY[w][1], entry)
+            [(args, kw, answer)] = calls
+            run = f"{mode}/{dev}"
+            check(_suite_answer(w, args, kw, answer),
+                  f"{w} {run}: the answer differs from the NumPy oracle")
+            check((ctr["cycles"], ctr["energy"]) == REFERENCE_SUITE_TRACE[w],
+                  f"{w} {run}: cycles/energy {ctr['cycles']}/"
+                  f"{ctr['energy']!r}, JAX {REFERENCE_SUITE_TRACE[w]}")
+            first = first or ctr
+            check(_same_counters(ctr, first), f"{w} {run}: counters or "
+                  "trace events differ from the eager run on the card")
+            mk = launches["ap_megakernel"]
+            check((mk > 0) == (mode == "megakernel" and dev == "cuda"),
+                  f"{w} {run}: {mk} megakernel launches")
+            if mode == "device" and dev == "cuda" and w != "hist":
+                check_launched(launches, ("ap_match",), f"{w} {run}")
+            if mode == "megakernel":
+                mk_launches += mk
+            rows[f"{w}/{run}"] = dict(seconds=sec, launches=launches)
+        say(f"  {w}: exact, {first['cycles']} cycles, energy "
+            f"{first['energy']!r} as JAX in every run; " + ", ".join(
+                f"{m}/{d} {rows[f'{w}/{m}/{d}']['seconds']:.2f} s"
+                for m, d in runs)
+            + f"; megakernel launches {rows[f'{w}/megakernel/cuda']['launches']['ap_megakernel']}")
+    results["suite_capture"] = dict(runs=rows,
+                                    megakernel_launches=mk_launches)
+    return mk_launches
+
+
+@phase("15 paper-size sort")
+def paper_sort(results):
+    import numpy as np
+    import torch
+    from repro_torch.workloads import registry, sort
+    x = np.random.default_rng(0).integers(0, 256, 2 ** 20, dtype=np.uint64)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, ctr = sort.ap_sort(x, m=8, mode="megakernel", device="cuda")
+    sec = time.perf_counter() - t0
+    launches = read_launches()
+    check_launched(launches, ("ap_megakernel",), "the paper-size sort")
+    check(np.array_equal(y, np.sort(x)), "the 2^20 sort is not sorted")
+    check((ctr["cycles"], ctr["energy"]) == REFERENCE_PAPER_SORT,
+          f"2^20 sort: cycles/energy {ctr['cycles']}/{ctr['energy']!r}, "
+          f"JAX {REFERENCE_PAPER_SORT}")
+    say(f"  ap_sort(2^20, m=8, megakernel): exact, {ctr['cycles']} cycles, "
+        f"energy {ctr['energy']!r} as JAX; {sec:.2f} s, "
+        f"{launches['ap_megakernel']} megakernel launches")
+    times = {}
+    for mode in ("device", "megakernel", "device", "megakernel"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        registry.trace_counters("sort", 2048, mode=mode, device="cuda")
+        times.setdefault(mode, []).append(time.perf_counter() - t0)
+    say(f"  sort n=2048 (second of two calls): device "
+        f"{times['device'][1]:.3f} s, megakernel "
+        f"{times['megakernel'][1]:.3f} s")
+    results["paper_sort"] = dict(seconds=sec, launches=launches,
+                                 cycles=ctr["cycles"], energy=ctr["energy"],
+                                 sort_2048_s=times)
+    return launches
+
+
+@phase("16 suite stack path")
+def suite_stack(results):
+    from repro_torch.stack import feedback
+    launches = _stack_path(results, "suite_stack", "pcg",
+                           REFERENCE_SUITE_STACK, workloads=SUITE)
+    # the ramp case again with the Picard loop given 12 iterations, where
+    # the reference converges too (the spread PEAK_TOL_EXCEPTIONS_C covers)
+    rep = feedback.run_stack_cosim(
+        ("sort",), n_dram=2, grid_n=24, n_intervals=48,
+        fb=feedback.FeedbackParams(n_picard=12), device="cuda")["sort"]["ap"]
+    peak = float(rep.dram_peak_C.max())
+    check(rep.dram_time_above_limit_s > 0.0,
+          "sort/ap with 12 Picard iterations: not BLOCKED")
+    say(f"  sort/ap with 12 Picard iterations: DRAM peak {peak:.4f} C, "
+        f"reference {REFERENCE_SORT_AP_PICARD12_C:.4f} C "
+        f"({peak - REFERENCE_SORT_AP_PICARD12_C:+.4f} C), BLOCKED for "
+        f"{rep.dram_time_above_limit_s:.4f} s, converged {rep.converged}")
+    results["suite_stack"]["sort_ap_picard12"] = dict(
+        dram_peak_C=peak, reference_C=REFERENCE_SORT_AP_PICARD12_C,
+        above_85C_s=rep.dram_time_above_limit_s, converged=rep.converged)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -850,6 +1189,10 @@ def main() -> int:
     paper_comparison(results)
     mg_launches = mg_path(results)
     legacy_launches = legacy_transient(results)
+    check_megakernel(results)
+    mk_launches = suite_capture(results)
+    sort_launches = paper_sort(results)
+    suite_launches = suite_stack(results)
 
     src = "src/repro_torch/kernels"
     ref = "src/repro/kernels"
@@ -878,6 +1221,15 @@ def main() -> int:
                     f"{ref}/thermal_stencil/kernel.py:101",
                     legacy_launches["thermal_stencil_uniform"],
                     results["uniform_large"]),
+        _kernel_row("ap_megakernel.run_group",
+                    f"{src}/ap_megakernel/csrc/ap_megakernel.cu",
+                    f"{ref}/ap_megakernel/kernel.py:93",
+                    mk_launches, results["mk_sort_round_32768"],
+                    launches_by_path={
+                        "suite_capture_megakernel_mode": mk_launches,
+                        "paper_sort_2^20": sort_launches["ap_megakernel"],
+                        "suite_stack_path":
+                            suite_launches["ap_megakernel"]}),
     ]
     results["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

@@ -75,23 +75,28 @@ def trace_elems(size: int) -> int:
 
 
 def ap_workload_trace(workload: str, n_intervals: int = 64,
-                      n_elems: int = 64, device="cuda") -> PowerTrace:
+                      n_elems: int = 64, mode: str = "device", *,
+                      device="cuda") -> PowerTrace:
     """Run a small instance of the named AP workload on ``device`` and
-    bin its measured energy events.  ``n_elems`` scales the instance.
+    bin its measured energy events.  ``n_elems`` scales the instance;
+    ``mode`` picks the execution path ("device" / "eager" /
+    "megakernel") — all three are bit-identical, so it only affects
+    capture speed.
 
-    Cached per (workload, n_intervals, n_elems, device): the device is
-    part of the key, so a CPU capture never serves a CUDA run.
+    Cached per (workload, n_intervals, n_elems, mode, device): the device
+    is part of the key, so a CPU capture never serves a CUDA run.
     """
-    return _ap_workload_trace(workload, n_intervals, n_elems,
+    return _ap_workload_trace(workload, n_intervals, n_elems, mode,
                               str(resolve_device(device)))
 
 
 @functools.lru_cache(maxsize=None)
 def _ap_workload_trace(workload: str, n_intervals: int, n_elems: int,
-                       device: str) -> PowerTrace:
+                       mode: str, device: str) -> PowerTrace:
     from repro_torch.workloads import registry
 
-    ctr = registry.trace_counters(workload, n_elems, device=device)
+    ctr = registry.trace_counters(workload, n_elems, mode=mode,
+                                  device=device)
     return trace_from_counters(ctr, n_intervals, source=f"ap:{workload}")
 
 

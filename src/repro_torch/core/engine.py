@@ -20,9 +20,17 @@ device once per ``run`` and fold into float64 NumPy energies with the
 reference's formulas, so energies, events and trace arrays are bit
 identical to the reference package's.
 
-Port note: the reference's functional ``APState``/``state_*`` device
-programs and its megakernel backends are not ported yet (the paper trio
-does not use them); the device is chosen by ``device``, not ``backend``.
+The functional core (:class:`APState` and the ``state_*`` ops) lets the
+device programs of ``workloads/_device.py`` keep a data-dependent inner
+loop on the device: per-pass matched counts and the packed counters stay
+there and cross to the host once per workload phase.
+
+Port note: the device is chosen by ``device``; ``backend`` only picks
+which kernel :meth:`APEngine.run` executes a schedule with — the pass
+schedule kernel (``"ap_match"``, the reference's ``jnp``/``pallas``) or
+the op-group megakernel (``"megakernel"``, the reference's
+``megakernel``/``megakernel_pallas``).  Lane sharding (``n_shards``) is
+not ported.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ from repro_torch import resolve_device
 from repro_torch.core import bitplane as bp
 from repro_torch.core.bitplane import Field, FieldAllocator
 from repro_torch.kernels.ap_match import ops as ap_ops
+from repro_torch.kernels.ap_megakernel import ops as mk_ops
+from repro_torch.kernels.ap_megakernel.ref import OpGroup
 
 
 def bin_energy_trace(cycles: np.ndarray, energy: np.ndarray,
@@ -135,6 +145,114 @@ class PassSchedule:
         )
 
 
+# ---------------------------------------------------------------------------
+# functional core: APState + pure ops.  The device programs of
+# workloads/_device.py thread an APState through Python loops over device
+# tensors, so a data-dependent inner loop never reads the card back; the
+# per-pass matched counts ride along and cross to the host once per
+# workload phase.
+# ---------------------------------------------------------------------------
+
+#: APState.counters layout (int32): on-device totals mirroring the host
+#: counters an eager replay would accumulate (match = matched-row compare
+#: events).
+CTR_CYCLES, CTR_COMPARE, CTR_WRITE, CTR_READ, CTR_MATCH = range(5)
+N_COUNTERS = 5
+
+_UNITS: dict = {}
+
+
+def _unit(device: torch.device, *entries: int) -> torch.Tensor:
+    """A constant int32[N_COUNTERS] vector on ``device`` (cached, so a
+    device program uploads it once)."""
+    key = (str(device), entries)
+    vec = _UNITS.get(key)
+    if vec is None:
+        vec = torch.tensor(entries, dtype=torch.int32, device=device)
+        _UNITS[key] = vec
+    return vec
+
+
+@dataclasses.dataclass(frozen=True)
+class APState:
+    """Functional snapshot of one AP array.
+
+    ``counters`` is a packed int32[N_COUNTERS] accumulator updated on
+    device by the ``state_*`` ops, so a device program carries its
+    cycle/event totals with it instead of syncing per cycle.
+    """
+    planes: torch.Tensor      # int32[n_bits, n_lanes]
+    tag: torch.Tensor         # int32[n_lanes]
+    counters: torch.Tensor    # int32[N_COUNTERS]
+
+
+def state_init(n_bits: int, n_words: int, device="cuda") -> APState:
+    dev = resolve_device(device)
+    return APState(bp.alloc_planes(n_bits, n_words, dev),
+                   torch.zeros(bp.n_lanes(n_words), dtype=torch.int32,
+                               device=dev),
+                   torch.zeros(N_COUNTERS, dtype=torch.int32, device=dev))
+
+
+def select_state(pred: torch.Tensor, a: APState, b: APState) -> APState:
+    """``a`` where pred else ``b`` — masks a whole op inside a device
+    program (the on-device version of an eager host-side branch);
+    ``pred`` is a 0-d bool tensor on the states' device."""
+    return APState(*(torch.where(pred, x, y) for x, y in (
+        (a.planes, b.planes), (a.tag, b.tag), (a.counters, b.counters))))
+
+
+def state_compare(state: APState, cols: torch.Tensor, key: torch.Tensor,
+                  restrict_to_tag: bool = False
+                  ) -> tuple[APState, torch.Tensor]:
+    """COMPARE: one cycle; returns (state', matched responder count as a
+    0-d int32 tensor).  ``cols``/``key`` are tensors on the state's
+    device."""
+    tag = bp.compare(state.planes, cols, key,
+                     state.tag if restrict_to_tag else None)
+    matched = bp.popcount(tag).to(torch.int32)
+    dev = state.counters.device
+    ctr = state.counters + _unit(dev, 1, 1, 0, 0, 0) \
+        + _unit(dev, 0, 0, 0, 0, 1) * matched
+    return APState(state.planes, tag, ctr), matched
+
+
+def state_write(state: APState, cols: torch.Tensor, key: torch.Tensor
+                ) -> tuple[APState, torch.Tensor]:
+    """WRITE into tagged rows: one cycle; returns (state', matched)."""
+    planes = bp.tagged_write(state.planes, state.tag, cols, key)
+    matched = bp.popcount(state.tag).to(torch.int32)
+    ctr = state.counters + _unit(state.counters.device, 1, 0, 1, 0, 0)
+    return APState(planes, state.tag, ctr), matched
+
+
+def state_read_charge(state: APState, n_rows: torch.Tensor) -> APState:
+    """Charge ``n_rows`` sequential read cycles (read_tagged on device:
+    the data itself is already host-resident or rides the trace)."""
+    ctr = state.counters + _unit(state.counters.device, 1, 0, 0, 1, 0) \
+        * n_rows.to(torch.int32)
+    return APState(state.planes, state.tag, ctr)
+
+
+def state_run(state: APState, cmp_cols, cmp_key, w_cols, w_key,
+              col_range: tuple[int, int] | None = None
+              ) -> tuple[APState, torch.Tensor]:
+    """Run a static pass table functionally; returns (state', matched[P]).
+
+    Mirrors :meth:`APEngine.run`: the TAG register is left untouched.
+    The tables are int32 tensors on the state's device; on a card the
+    schedule launches ``kernels/ap_match``.  ``col_range`` passes the
+    tables' known column bounds on, so the launch reads nothing back.
+    """
+    planes, matched = ap_ops.run_schedule(state.planes, cmp_cols, cmp_key,
+                                          w_cols, w_key, col_range)
+    P = cmp_cols.shape[0]
+    dev = state.counters.device
+    ctr = state.counters + _unit(dev, 2, 1, 1, 0, 0) * P \
+        + _unit(dev, 0, 0, 0, 0, 1) * matched.sum().to(torch.int32)
+    return APState(planes, state.tag, ctr), matched
+
+
 def _next_pow2(n: int) -> int:
     return 1 << (max(int(n), 1) - 1).bit_length()
 
@@ -187,14 +305,25 @@ def schedule_tensors(cc, ck, wc, wk, device) -> tuple[torch.Tensor, ...]:
 class APEngine:
     """One Associative Processing array: n_words PUs x n_bits columns."""
 
+    BACKENDS = ("ap_match", "megakernel")
+
     def __init__(self, n_words: int, n_bits: int = 256,
                  power: PowerParams = PAPER_POWER, collect_stats: bool = True,
+                 backend: str = "ap_match", n_shards: int | None = None,
                  device: str | torch.device = "cuda"):
+        if backend not in self.BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected one "
+                             f"of {self.BACKENDS}")
+        if n_shards is not None:
+            raise NotImplementedError(
+                "n_shards (lane sharding of the AP planes over several "
+                "cards) is not ported yet (ROADMAP Queue 1, item 2)")
         self.device = resolve_device(device)
         self.n_words = n_words
         self.n_bits = n_bits
         self.power = power
         self.collect_stats = collect_stats
+        self.backend = backend
         self.planes = bp.alloc_planes(n_bits, n_words, self.device)
         self.tag = torch.zeros(bp.n_lanes(n_words), dtype=torch.int32,
                                device=self.device)
@@ -341,6 +470,46 @@ class APEngine:
             self.events["write"] += int((kw * mf).sum())
             self.events["miswrite"] += int((kw * (n - mf)).sum())
 
+    def charge_bulk(self, *, cycles: int = 0, compare_cycles: int = 0,
+                    write_cycles: int = 0, read_cycles: int = 0,
+                    energy_terms=None, trace_cycles=None, trace_energy=None,
+                    match: int = 0, mismatch: int = 0, write: int = 0,
+                    miswrite: int = 0) -> None:
+        """Fold a precomputed bulk replay block into the accounting.
+
+        The vectorized counterpart of a ``charge_*`` call sequence
+        (megakernel replay uses it to retire thousands of events in one
+        call).  Bit-identity contract the callers uphold:
+
+        * ``energy_terms`` (float64[n]) lists the scalar values the
+          equivalent charge sequence would have added to ``energy``, in
+          order — one term per scalar event, one PRE-SUMMED term per
+          ``charge_run`` chunk (``np.sum`` is pairwise, so chunk sums
+          must be taken per chunk, never globally).  The fold here is a
+          seeded ``np.cumsum``, which accumulates float64 strictly
+          sequentially — identical to the scalar ``+=`` loop.
+        * ``trace_cycles``/``trace_energy`` are the absolute-cycle /
+          per-event energy arrays in eager append order; they land as
+          ONE trace chunk, which concatenates to the same flat arrays.
+        * counter/event deltas are exact ints.
+        """
+        self.cycles += int(cycles)
+        self.compare_cycles += int(compare_cycles)
+        self.write_cycles += int(write_cycles)
+        self.read_cycles += int(read_cycles)
+        if not self.collect_stats:
+            return
+        if energy_terms is not None and len(energy_terms):
+            self.energy = float(np.cumsum(np.concatenate(
+                [[self.energy], np.asarray(energy_terms, np.float64)]))[-1])
+        if trace_cycles is not None and len(trace_cycles):
+            self._trace_cycles.append(np.asarray(trace_cycles, np.int64))
+            self._trace_energy.append(np.asarray(trace_energy, np.float64))
+        self.events["match"] += int(match)
+        self.events["mismatch"] += int(mismatch)
+        self.events["write"] += int(write)
+        self.events["miswrite"] += int(miswrite)
+
     def clear(self, field: Field) -> None:
         self.bwrite(field.cols(), [0] * field.width)
 
@@ -358,7 +527,9 @@ class APEngine:
 
     # ------------------------------------------------------ fused schedules
     def run(self, sched: PassSchedule) -> None:
-        """Execute a static pass schedule through ``kernels/ap_match``.
+        """Execute a static pass schedule through ``kernels/ap_match``,
+        or as an all-PASS op group through ``kernels/ap_megakernel`` when
+        the engine's backend is ``"megakernel"``.
 
         The schedule shape is padded to the reference's power-of-two
         bucket (:func:`bucket_schedule`); the padded no-op passes'
@@ -366,9 +537,32 @@ class APEngine:
         cross to the host once per call.
         """
         P = sched.n_passes
-        tables = schedule_tensors(*bucket_schedule(sched), self.device)
-        self.planes, matched = ap_ops.run_schedule(self.planes, *tables)
+        tables = bucket_schedule(sched)
+        if self.backend == "megakernel":
+            self.planes, self.tag, matched = mk_ops.run_group(
+                self.planes, self.tag, OpGroup.from_schedule(*tables))
+        else:
+            self.planes, matched = ap_ops.run_schedule(
+                self.planes, *schedule_tensors(*tables, self.device))
         self.charge_run(sched, matched[:P].cpu().numpy())
+
+    # -------------------------------------------------- functional bridge
+    def state(self) -> APState:
+        """Snapshot (planes, tag, zeroed counters) for a device program."""
+        return APState(self.planes, self.tag,
+                       torch.zeros(N_COUNTERS, dtype=torch.int32,
+                                   device=self.device))
+
+    def adopt(self, state: APState) -> None:
+        """Adopt a device program's final array state.
+
+        Counters are NOT folded in: the caller replays its per-pass
+        matched counts through the ``charge_*`` methods so energy/event/
+        trace accounting stays event-exact (the device-side
+        ``state.counters`` exist to cross-check those replays).
+        """
+        self.planes = state.planes
+        self.tag = state.tag
 
     # ------------------------------------------------------ energy helpers
     def _account_compare(self, k: int, matched: int) -> None:

@@ -11,7 +11,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.engine import schedule_tensors
+from repro_torch.core.engine import APState, PassSchedule, schedule_tensors
+from repro_torch.kernels.ap_megakernel.ref import OpGroup
+from repro_torch.workloads._device import MinExtractTrace
 
 
 def planes_from_reference(planes: np.ndarray, device="cuda") -> torch.Tensor:
@@ -82,3 +84,37 @@ def levels_from_reference(levels, device="cuda") -> list:
     return [(fields_from_reference(F, dev),
              torch.from_numpy(np.array(d, np.float32)).to(dev))
             for F, d in levels]
+
+
+def op_group_from_reference(tables) -> OpGroup:
+    """A reference ``OpGroup``'s six tables (``group.tables()``: op, cond,
+    cmp_cols, cmp_key, w_cols, w_key) -> the port's ``OpGroup``."""
+    op, cond, cc, ck, wc, wk = (np.asarray(t) for t in tables)
+    return OpGroup(op.astype(np.int32), cond.astype(np.int32),
+                   cc.astype(np.int32), ck.astype(np.uint32),
+                   wc.astype(np.int32), wk.astype(np.uint32))
+
+
+def state_from_reference(planes, tag, counters, device="cuda") -> APState:
+    """A reference ``APState``'s leaves (uint32 planes and tag, int32
+    counters) -> the port's ``APState`` on ``device``."""
+    dev = resolve_device(device)
+    return APState(planes_from_reference(planes, dev),
+                   planes_from_reference(np.asarray(tag)[None], dev)[0],
+                   torch.from_numpy(np.array(counters, np.int32)).to(dev))
+
+
+def pass_schedule_from_reference(sched) -> PassSchedule:
+    """A reference ``PassSchedule`` -> the port's (the same six tables)."""
+    return PassSchedule(*(np.array(getattr(sched, k)) for k in (
+        "cmp_cols", "cmp_key", "w_cols", "w_key", "kc", "kw")))
+
+
+def min_extract_trace_from_reference(tr):
+    """A reference ``MinExtractTrace`` -> the port's, field for field, as
+    NumPy arrays (its schedule as the port's ``PassSchedule``)."""
+    return MinExtractTrace(
+        pass_schedule_from_reference(tr.copy_sched),
+        *(np.array(getattr(tr, k)) for k in (
+            "copy_matched", "m1", "m2", "take", "count", "tie_tag",
+            "masked", "device_counters")))

@@ -59,13 +59,16 @@ def run_schedule_plain(planes: torch.Tensor, cmp_cols, cmp_key, w_cols,
 
 def run_schedule(planes: torch.Tensor, cmp_cols: torch.Tensor,
                  cmp_key: torch.Tensor, w_cols: torch.Tensor,
-                 w_key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                 w_key: torch.Tensor, col_range: tuple[int, int] | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Execute a full AP pass schedule.
 
     planes : int32[n_bits, n_lanes]
     cmp_cols/cmp_key : int32[P, Kc];  w_cols/w_key : int32[P, Kw], on the
     planes' device.  Returns (planes', matched int32[P]); the input
-    planes are left unchanged.
+    planes are left unchanged.  ``col_range`` is the (least, greatest)
+    column of the tables where the caller knows it from its host copy;
+    without it the wrapper reads the bounds back from the card.
     """
     if planes.device.type == "cpu":
         return run_schedule_plain(planes, cmp_cols, cmp_key, w_cols, w_key)
@@ -92,9 +95,12 @@ def run_schedule(planes: torch.Tensor, cmp_cols: torch.Tensor,
     matched = torch.zeros(P, dtype=torch.int32, device=planes.device)
     if P == 0 or n_lanes == 0:
         return out, matched
-    lo_c, hi_c, lo_w, hi_w = torch.stack(
-        [cmp_cols.min(), cmp_cols.max(), w_cols.min(), w_cols.max()]).tolist()
-    if min(lo_c, lo_w) < 0 or max(hi_c, hi_w) >= n_bits:
+    if col_range is None:
+        lo_c, hi_c, lo_w, hi_w = torch.stack(
+            [cmp_cols.min(), cmp_cols.max(), w_cols.min(),
+             w_cols.max()]).tolist()
+        col_range = (min(lo_c, lo_w), max(hi_c, hi_w))
+    if col_range[0] < 0 or col_range[1] >= n_bits:
         raise IndexError(f"schedule column outside [0, {n_bits})")
     tables = [t.contiguous() for t in tables]
     rc = lib.ap_match_run_schedule(

@@ -8,11 +8,10 @@ return the engine counters *including* the ``trace_cycles`` /
 ``trace_energy`` event arrays.  Names are unique; :func:`register`
 rejects duplicates.
 
-Port note: only the paper's §3.1 trio is registered so far (the four
-suite workloads follow, ROADMAP Queue 1, item 1).  The trio is
-schedule-driven, so the reference's ``mode`` argument (which picks an
-execution path for data-dependent workloads) has no counterpart here;
-``device`` picks where the engine runs.
+The paper's §3.1 trio and the four suite additions register on import
+of :mod:`repro_torch.workloads`.  ``mode`` picks the execution path of
+the data-dependent suite workloads, as in the reference; ``device``
+picks where the engine runs.
 """
 from __future__ import annotations
 
@@ -30,9 +29,12 @@ _REGISTRY: dict[str, "WorkloadDef"] = {}
 class WorkloadDef:
     """One registered workload.
 
-    ``run_small(n, device)`` executes an ~n-element instance and returns
-    engine counters with trace events; ``paper`` marks the original §3.1
-    trio.
+    ``run_small(n, mode, device)`` executes an ~n-element instance and
+    returns engine counters with trace events; ``paper`` marks the
+    original §3.1 trio.  ``mode`` selects device-resident execution
+    ("device", the default), the per-cycle eager oracle ("eager"), or
+    the op-group megakernel path ("megakernel") for the data-dependent
+    workloads — the schedule-driven trio ignores it.
     """
     name: str
     title: str
@@ -66,19 +68,19 @@ def names() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-def trace_counters(name: str, n_elems: int = 64, *,
+def trace_counters(name: str, n_elems: int = 64, mode: str = "device", *,
                    device="cuda") -> dict:
     """Run the named workload's ~n_elems-element instance for its trace."""
-    return get(name).run_small(n_elems, device=device)
+    return get(name).run_small(n_elems, mode=mode, device=device)
 
 
 # ---------------------------------------------------------------------------
-# trio registrations.  Each runner sizes a small exact instance off ``n``
+# suite registrations.  Each runner sizes a small exact instance off ``n``
 # (the same inputs, from the same seeds, as the reference registry) so
 # the captured activity profile keeps its per-phase structure.
 # ---------------------------------------------------------------------------
 
-def _run_dmm(n: int, device="cuda") -> dict:
+def _run_dmm(n: int, mode: str = "device", device="cuda") -> dict:
     rng = np.random.default_rng(0)
     from repro_torch.workloads import dmm
     side = max(4, int(np.sqrt(n)) // 2 * 2)
@@ -88,7 +90,7 @@ def _run_dmm(n: int, device="cuda") -> dict:
     return ctr
 
 
-def _run_fft(n: int, device="cuda") -> dict:
+def _run_fft(n: int, mode: str = "device", device="cuda") -> dict:
     rng = np.random.default_rng(0)
     from repro_torch.workloads import fft
     N = 1 << max(3, int(np.log2(max(n, 8))) // 2 + 2)
@@ -97,7 +99,7 @@ def _run_fft(n: int, device="cuda") -> dict:
     return ctr
 
 
-def _run_bs(n: int, device="cuda") -> dict:
+def _run_bs(n: int, mode: str = "device", device="cuda") -> dict:
     rng = np.random.default_rng(0)
     from repro_torch.workloads import blackscholes as bs
     k = max(n, 32)
@@ -108,9 +110,68 @@ def _run_bs(n: int, device="cuda") -> dict:
     return ctr
 
 
+def _run_sort(n: int, mode: str = "device", device="cuda") -> dict:
+    rng = np.random.default_rng(0)
+    from repro_torch.workloads import sort
+    _, ctr = sort.ap_sort(rng.integers(0, 256, max(n, 32),
+                                       dtype=np.uint64), m=8, mode=mode,
+                          device=device)
+    return ctr
+
+
+def _run_spmv(n: int, mode: str = "device", device="cuda") -> dict:
+    rng = np.random.default_rng(0)
+    from repro_torch.workloads import spmv
+    n_rows = max(8, int(np.sqrt(max(n, 16))))
+    nnz = max(n, 16)
+    r = rng.integers(0, n_rows, nnz)
+    c = rng.integers(0, n_rows, nnz)
+    v = rng.integers(0, 50, nnz, dtype=np.uint64)
+    x = rng.integers(0, 50, n_rows, dtype=np.uint64)
+    _, ctr = spmv.ap_spmv(r, c, v, x, n_rows, m=6, mode=mode, device=device)
+    return ctr
+
+
+def _run_knn(n: int, mode: str = "device", device="cuda") -> dict:
+    rng = np.random.default_rng(0)
+    from repro_torch.workloads import knn
+    rows = max(n, 32)
+    # k scales with the database (capped) so the min-extraction phase
+    # keeps its per-round structure at larger trace instances instead
+    # of staying a fixed 5-round tail behind the LUT distance sweep
+    k = min(64, max(5, rows // 8))
+    db = rng.integers(0, 16, (rows, 4), dtype=np.uint64)
+    q = rng.integers(0, 16, 4, dtype=np.uint64)
+    _, ctr = knn.ap_knn(db, q, k=min(k, rows), m=4, mode=mode,
+                        device=device)
+    return ctr
+
+
+def hist_bins(n: int) -> int:
+    """Bin count for a histogram trace instance: more bins at larger
+    instances keep the per-bin activity structure (and the bin-probe
+    phase from degenerating to a handful of cycles), capped at one bin
+    per value (2^6 for the m=6 trace instances).  Power of two, as
+    ``ap_histogram`` requires."""
+    return 1 << int(np.log2(max(8, min(64, n // 4))))
+
+
+def _run_hist(n: int, mode: str = "device", device="cuda") -> dict:
+    rng = np.random.default_rng(0)
+    from repro_torch.workloads import histogram
+    _, ctr = histogram.ap_histogram(
+        rng.integers(0, 64, max(n, 32), dtype=np.uint64),
+        n_bins=hist_bins(n), m=6, mode=mode, device=device)
+    return ctr
+
+
 for _wd in (
     WorkloadDef("dmm", "dense matrix multiply (§3.1)", _run_dmm, paper=True),
     WorkloadDef("fft", "radix-2 FFT (§3.1)", _run_fft, paper=True),
     WorkloadDef("bs", "Black-Scholes (§3.1)", _run_bs, paper=True),
+    WorkloadDef("sort", "associative sort (min-extraction)", _run_sort),
+    WorkloadDef("spmv", "sparse matrix-vector multiply", _run_spmv),
+    WorkloadDef("knn", "k-nearest-neighbour search", _run_knn),
+    WorkloadDef("hist", "histogram (response-counter binning)", _run_hist),
 ):
     register(_wd)

@@ -14,8 +14,10 @@ import torch
 from repro_torch import interop
 from repro_torch.core import arith, isa
 from repro_torch.core.bitplane import Field
-from repro_torch.core.engine import PassSchedule, bucket_schedule
+from repro_torch.core.engine import APEngine, PassSchedule, bucket_schedule
 from repro_torch.kernels.ap_match import ops as ap_ops
+from repro_torch.kernels.ap_megakernel import ops as mk_ops
+from repro_torch.kernels.ap_megakernel import ref as mk_ref
 from repro_torch.kernels.mg_smooth import ops as mg_ops
 from repro_torch.kernels.thermal_stencil import ops as st_ops
 
@@ -164,3 +166,97 @@ def test_ap_kernel_rejects_out_of_range_columns(cuda):
     tab = torch.tensor([[7]], dtype=torch.int32, device=cuda)
     with pytest.raises(IndexError):
         ap_ops.run_schedule(planes, tab, tab * 0, tab * 0, tab * 0)
+
+
+def _random_group(rng, n_bits, P, conditional):
+    """Random ops of every kind; repeated write columns allowed."""
+    ops = []
+    for p in range(P):
+        opc = int(rng.integers(0, 4))
+        cond = int(rng.integers(0, min(p, mk_ref.MAX_COND) + 1)) \
+            if conditional else 0
+        nc, nw = int(rng.integers(1, 4)), int(rng.integers(1, 3))
+        ops.append((opc, cond, rng.integers(0, n_bits, nc).tolist(),
+                    rng.integers(0, 2, nc).tolist(),
+                    rng.integers(0, n_bits, nw).tolist(),
+                    rng.integers(0, 2, nw).tolist()))
+    return mk_ref.OpGroup.build(ops)
+
+
+@pytest.mark.parametrize("P", [7, 1024])
+@pytest.mark.parametrize("kind", ["conditional", "unconditional",
+                                  "disabled"])
+@pytest.mark.parametrize("n_lanes", [1, 31, 32, 129, 32768])
+def test_megakernel_equals_plain(cuda, n_lanes, kind, P):
+    """Planes, tag and matched bit for bit against the plain version; 129
+    lanes do not fill the last CTA tile of an unconditional group."""
+    rng = np.random.default_rng(n_lanes * 7 + P)
+    n_bits = 10
+    group = _random_group(rng, n_bits, P, kind == "conditional")
+    planes = interop.planes_from_reference(
+        rng.integers(0, 2 ** 32, (n_bits, n_lanes),
+                     dtype=np.uint64).astype(np.uint32), cuda)
+    tag = interop.planes_from_reference(
+        rng.integers(0, 2 ** 32, (1, n_lanes),
+                     dtype=np.uint64).astype(np.uint32), cuda)[0]
+    enabled = (np.zeros(P, bool) if kind == "disabled"
+               else rng.integers(0, 4, P) > 0)
+    before = mk_ops.run_group.launches
+    got_p, got_t, got_m = mk_ops.run_group(planes, tag, group, enabled)
+    assert mk_ops.run_group.launches == before + 1
+    want_p, want_t, want_m, _ = mk_ref.group_scan_plain(
+        planes, tag, group.tables(), enabled)
+    assert torch.equal(got_p, want_p)
+    assert torch.equal(got_t, want_t)
+    assert torch.equal(got_m, want_m)
+    if kind == "disabled":
+        assert torch.equal(got_p, planes) and int(got_m.abs().sum()) == 0
+
+
+def test_megakernel_rejects_what_it_does_not_take(cuda):
+    group = mk_ref.OpGroup.probes([[7]], [[1]])
+    planes = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    tag = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(IndexError):
+        mk_ops.run_group(planes, tag, group)
+    ok = mk_ref.OpGroup.probes([[1]], [[1]])
+    with pytest.raises(ValueError):
+        mk_ops.run_group(planes.double(), tag, ok)
+    with pytest.raises(ValueError):
+        mk_ops.run_group(planes, tag.cpu(), ok)
+
+
+@pytest.mark.parametrize("mode", ["eager", "device", "megakernel"])
+@pytest.mark.parametrize("w", ["sort", "knn", "hist", "spmv"])
+def test_suite_workloads_card_equals_host(cuda, w, mode):
+    """Each suite workload's counters and trace events are identical on
+    the card and on the host; megakernel mode launches the megakernel."""
+    from repro_torch.workloads import registry
+    before = mk_ops.run_group.launches
+    on_card = registry.trace_counters(w, 64, mode=mode, device="cuda")
+    launched = mk_ops.run_group.launches - before
+    on_host = registry.trace_counters(w, 64, mode=mode, device="cpu")
+    assert set(on_card) == set(on_host)
+    for k, v in on_host.items():
+        if isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(on_card[k], v, err_msg=k)
+        else:
+            assert on_card[k] == v, k
+    assert (launched > 0) == (mode == "megakernel")
+
+
+def test_engine_megakernel_run_card_equals_host(cuda):
+    """APEngine.run with the megakernel backend: planes, tag, counters and
+    trace on the card equal the host's."""
+    engines = [APEngine(64, 40, backend="megakernel", device=d)
+               for d in ("cuda", "cpu")]
+    vals = np.random.default_rng(3).integers(0, 64, 64, dtype=np.uint64)
+    for eng in engines:
+        eng.load(Field(0, 6), vals)
+        eng.load(Field(8, 6), vals[::-1].copy())
+        eng.run(_schedule("mul"))
+    card, host = engines
+    assert torch.equal(card.planes.cpu(), host.planes)
+    assert card.counters() == host.counters()
+    for a, b in zip(card.trace_events(), host.trace_events()):
+        np.testing.assert_array_equal(a, b)

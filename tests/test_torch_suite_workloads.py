@@ -1,0 +1,337 @@
+"""PyTorch port vs the JAX reference: the four suite workloads.
+
+sort, knn, hist and spmv run in each of the three execution modes
+(``eager``, ``device``, ``megakernel``) on both packages, the port on the
+CPU (where the megakernel's wrapper takes its plain version).  Results,
+cycle counters, event counts, float64 energies and the trace event arrays
+must be identical; so must the device programs' per-round traces
+(``MinExtractTrace``, masked rounds included) and their on-device
+counters.  The suite's closed-loop stack replay agrees to the Picard
+residual bar.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core import cosim as jcosim
+from repro.core import engine as jengine
+from repro.stack import feedback as jfb
+from repro.workloads import _device as jdev
+from repro.workloads import histogram as jhist
+from repro.workloads import knn as jknn
+from repro.workloads import registry as jregistry
+from repro.workloads import sort as jsort
+from repro.workloads import spmv as jspmv
+from repro_torch import interop
+from repro_torch.core import cosim as tcosim
+from repro_torch.core import engine as tengine
+from repro_torch.stack import feedback as tfb
+from repro_torch.workloads import _device as tdev
+from repro_torch.workloads import histogram as thist
+from repro_torch.workloads import knn as tknn
+from repro_torch.workloads import registry as tregistry
+from repro_torch.workloads import sort as tsort
+from repro_torch.workloads import spmv as tspmv
+
+SUITE = ("sort", "knn", "hist", "spmv")
+MODES = ("eager", "device", "megakernel")
+ENTRY = {"sort": "ap_sort", "knn": "ap_knn", "hist": "ap_histogram",
+         "spmv": "ap_spmv"}
+MODULES = {"sort": (jsort, tsort), "knn": (jknn, tknn),
+           "hist": (jhist, thist), "spmv": (jspmv, tspmv)}
+PEAK_ATOL_C = 0.05          # the Picard residual bar
+
+
+def _spy(monkeypatch, module, name, sink):
+    """Record the arguments and (result, counters) of a workload call."""
+    fn = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        out = fn(*a, **kw)
+        sink.append((a, kw, out))
+        return out
+    monkeypatch.setattr(module, name, wrapped)
+
+
+def _assert_counters_identical(ref: dict, got: dict):
+    assert set(ref) == set(got)
+    for k, v in ref.items():
+        if isinstance(v, np.ndarray):
+            assert got[k].dtype == v.dtype, k
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        else:
+            assert type(got[k]) is type(v) and got[k] == v, k
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("w", SUITE)
+def test_suite_workload_matches_reference(monkeypatch, w, mode):
+    """80-element instances (sort and knn pad to 96 words): the answer,
+    every counter and the trace arrays, bit for bit."""
+    jmod, tmod = MODULES[w]
+    j_out, t_out = [], []
+    _spy(monkeypatch, jmod, ENTRY[w], j_out)
+    _spy(monkeypatch, tmod, ENTRY[w], t_out)
+    ref = jregistry.trace_counters(w, 80, mode=mode)
+    got = tregistry.trace_counters(w, 80, mode=mode, device="cpu")
+    _assert_counters_identical(ref, got)
+    assert got["energy"] == ref["energy"]            # float64, bit for bit
+    [(args, kw, (j_res, _))], [(_, _, (t_res, _))] = j_out, t_out
+    np.testing.assert_array_equal(np.asarray(t_res), np.asarray(j_res))
+    assert np.asarray(t_res).dtype == np.asarray(j_res).dtype
+    # and the answer is the workload's own oracle's
+    oracle = {"sort": lambda: tsort.reference(args[0]),
+              "knn": lambda: tknn.reference(args[0], args[1], kw["k"]),
+              "hist": lambda: thist.reference(args[0], kw["n_bins"],
+                                              m=kw["m"]),
+              "spmv": lambda: tspmv.reference(*args[:5])}[w]()
+    np.testing.assert_array_equal(np.asarray(t_res), oracle)
+
+
+def test_state_ops_match_reference():
+    """The functional core on one carried state: a pass table, compares
+    (plain and restricted to the TAG), a tagged write, a read charge and
+    both arms of a select — planes, tag, matched and counters."""
+    import jax.numpy as jnp
+    from repro.core import isa as jisa
+    from repro.core.bitplane import Field as JField
+    rng = np.random.default_rng(8)
+    planes = rng.integers(0, 2 ** 32, (6, 3), dtype=np.uint64).astype(
+        np.uint32)
+    tag = rng.integers(0, 2 ** 32, 3, dtype=np.uint64).astype(np.uint32)
+    js = jengine.APState(jnp.asarray(planes), jnp.asarray(tag),
+                         jnp.zeros(jengine.N_COUNTERS, jnp.int32))
+    ts = interop.state_from_reference(planes, tag,
+                                      np.zeros(tengine.N_COUNTERS), "cpu")
+    sched = jisa.copy(JField(4, 1), JField(0, 1))
+    tabs = interop.schedule_from_reference(
+        sched.cmp_cols, sched.cmp_key, sched.w_cols, sched.w_key, "cpu")
+    js, jm = jengine.state_run(js, *(jnp.asarray(a) for a in (
+        sched.cmp_cols, sched.cmp_key, sched.w_cols, sched.w_key)))
+    ts, tm = tengine.state_run(ts, *tabs)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    cols, key = [1, 2], [1, 0]
+    for restrict in (False, True):
+        js, jm = jengine.state_compare(js, jnp.asarray(cols, jnp.int32),
+                                       jnp.asarray(key, jnp.uint32),
+                                       restrict_to_tag=restrict)
+        ts, tm = tengine.state_compare(
+            ts, torch.tensor(cols), torch.tensor(key, dtype=torch.int32),
+            restrict_to_tag=restrict)
+        assert int(tm) == int(jm) and tm.dtype == torch.int32
+    js_w, jm = jengine.state_write(js, jnp.asarray([3], jnp.int32),
+                                   jnp.asarray([1], jnp.uint32))
+    ts_w, tm = tengine.state_write(ts, torch.tensor([3]),
+                                   torch.tensor([1], dtype=torch.int32))
+    assert int(tm) == int(jm)
+    js_w = jengine.state_read_charge(js_w, jm)
+    ts_w = tengine.state_read_charge(ts_w, tm)
+    for pred in (True, False):
+        jsel = jengine.select_state(jnp.bool_(pred), js_w, js)
+        tsel = tengine.select_state(torch.tensor(pred), ts_w, ts)
+        np.testing.assert_array_equal(
+            interop.planes_to_reference(tsel.planes), np.asarray(jsel.planes))
+        np.testing.assert_array_equal(
+            interop.planes_to_reference(tsel.tag[None])[0],
+            np.asarray(jsel.tag))
+        np.testing.assert_array_equal(tsel.counters.numpy(),
+                                      np.asarray(jsel.counters))
+    fresh = tengine.state_init(6, 96, "cpu")
+    assert fresh.planes.shape == (6, 3) and int(fresh.counters.sum()) == 0
+
+
+def _extract_setup(pkg_engine, x, m, kw):
+    eng = pkg_engine.APEngine(n_words=64, n_bits=m + 2, **kw)
+    val = eng.alloc.alloc(m, "val")
+    active = eng.alloc.alloc(1, "active")
+    cand = eng.alloc.alloc(1, "cand")
+    eng.load(val, np.pad(x, (0, 64 - len(x))))
+    eng.load(active, (np.arange(64) < len(x)).astype(np.uint64))
+    return eng, val, active, cand
+
+
+@pytest.mark.parametrize("readout", [False, True], ids=["sort", "knn"])
+@pytest.mark.parametrize("program", ["device", "megakernel"])
+def test_min_extract_trace_matches_reference(program, readout):
+    """The per-round trace of both device programs, every field and
+    dtype; rounds past the end (masked) record the group's result on the
+    frozen state.  The on-device counters equal the host replay's."""
+    rng = np.random.default_rng(4)
+    m = 5
+    x = rng.integers(0, 1 << m, 60, dtype=np.uint64)
+    rounds = 40                              # > the 27 distinct values
+    remaining = 7 if readout else len(x)
+    jrun = jdev.min_extract_rounds_mk if program == "megakernel" \
+        else jdev.min_extract_rounds
+    trun = tdev.min_extract_rounds_mk if program == "megakernel" \
+        else tdev.min_extract_rounds
+    backend = "megakernel" if program == "megakernel" else "jnp"
+    je, *jf = _extract_setup(jengine, x, m, dict(backend=backend))
+    te, *tf = _extract_setup(tengine, x, m, dict(
+        backend=tdev.engine_backend(program), device="cpu"))
+    jtr = jrun(je, *jf, rounds=rounds, remaining=remaining, readout=readout)
+    ttr = trun(te, *tf, rounds=rounds, remaining=remaining, readout=readout)
+    want = interop.min_extract_trace_from_reference(jtr)
+    for name in ("copy_matched", "m1", "m2", "take", "count", "tie_tag",
+                 "masked", "device_counters"):
+        a, b = getattr(want, name), getattr(ttr, name)
+        assert b.dtype == a.dtype and b.shape == a.shape, name
+        np.testing.assert_array_equal(b, a, err_msg=name)
+    assert ttr.masked.any() and not ttr.masked.all()
+    for k in ("cmp_cols", "cmp_key", "w_cols", "w_key", "kc", "kw"):
+        np.testing.assert_array_equal(getattr(ttr.copy_sched, k),
+                                      getattr(want.copy_sched, k))
+    np.testing.assert_array_equal(interop.planes_to_reference(te.planes),
+                                  np.asarray(je.planes))
+
+    # the on-device counters against the host replay of the same rounds
+    before = te.counters()
+    if program == "megakernel":
+        _, _, r_used = tdev.replay_extract_bulk(te, ttr, m, remaining,
+                                                readout=readout)
+    else:
+        r_used, out = 0, 0
+        while out < remaining and not ttr.masked[r_used]:
+            _, count = tdev.replay_extract(te, ttr, r_used, m)
+            if readout:
+                te.charge_read(count)
+                te.charge_compare(1, count)
+            te.charge_write(1, count)
+            out += count
+            r_used += 1
+    after = te.counters()
+    dc = ttr.device_counters
+    for idx, key in ((tengine.CTR_CYCLES, "cycles"),
+                     (tengine.CTR_COMPARE, "compare_cycles"),
+                     (tengine.CTR_WRITE, "write_cycles"),
+                     (tengine.CTR_READ, "read_cycles"),
+                     (tengine.CTR_MATCH, "match")):
+        assert dc[idx] == after[key] - before[key], key
+    assert int((~ttr.masked).sum()) == r_used
+
+
+@pytest.mark.parametrize("mode", ["device", "megakernel"])
+def test_sort_early_exhaustion(mode):
+    """A budget larger than the active set: the round that finds no
+    candidate ends the program, and the rounds after it are masked."""
+    m = 4
+    x = np.array([3, 1, 3, 9, 0, 1], np.uint64)
+    traces = []
+    for pkg_engine, dev, kw in (
+            (jengine, jdev, dict(backend="megakernel" if mode ==
+                                 "megakernel" else "jnp")),
+            (tengine, tdev, dict(backend=tdev.engine_backend(mode),
+                                 device="cpu"))):
+        eng, val, active, cand = _extract_setup(pkg_engine, x, m, kw)
+        run = dev.min_extract_rounds_mk if mode == "megakernel" \
+            else dev.min_extract_rounds
+        tr = run(eng, val, active, cand, rounds=8, remaining=len(x) + 5)
+        vals, cnts, r_used = dev.replay_extract_bulk(eng, tr, m,
+                                                     budget=len(x) + 5)
+        traces.append((tr, vals, cnts, r_used, eng.counters()))
+    (jtr, jv, jc, jr, jctr), (ttr, tv, tc, tr_, tctr) = traces
+    np.testing.assert_array_equal(ttr.count, np.asarray(jtr.count))
+    np.testing.assert_array_equal(ttr.masked, np.asarray(jtr.masked))
+    assert list(ttr.count[:5]) == [1, 2, 2, 1, 0]
+    assert ttr.masked[5:].all() and not ttr.masked[:5].any()
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(tc, jc)
+    assert tr_ == jr == 5
+    assert tctr == jctr
+    np.testing.assert_array_equal(np.repeat(tv, tc), np.sort(x))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_sort_empty_input(mode):
+    ref, jc = jsort.ap_sort(np.zeros(0, np.uint64), mode=mode)
+    got, tc = tsort.ap_sort(np.zeros(0, np.uint64), mode=mode, device="cpu")
+    assert got.shape == (0,) and got.dtype == ref.dtype
+    _assert_counters_identical(jc, tc)
+
+
+def test_registry_matches_reference():
+    assert tregistry.names() == jregistry.names()
+    for name in jregistry.names():
+        wd_j, wd_t = jregistry.get(name), tregistry.get(name)
+        assert (wd_t.title, wd_t.paper) == (wd_j.title, wd_j.paper), name
+
+
+@pytest.mark.parametrize("name", ["dmm", "sort", "knn", "hist", "spmv"])
+def test_trace_counters_through_the_registry(name):
+    """``trace_counters`` with the mode passed through (fft and bs are
+    held bit-identical at 64 elements in test_torch_engine_workloads.py,
+    and take the reference's seconds here)."""
+    ref = jregistry.trace_counters(name, 32, mode="megakernel")
+    got = tregistry.trace_counters(name, 32, "megakernel", device="cpu")
+    _assert_counters_identical(ref, got)
+    for n in (8, 48):
+        np.testing.assert_array_equal(
+            tcosim.trace_from_counters(got, n).activity,
+            jcosim.trace_from_counters(ref, n).activity)
+
+
+def test_ap_workload_trace_keys_the_mode():
+    tcosim._ap_workload_trace.cache_clear()
+    a = tcosim.ap_workload_trace("hist", 12, 64, "eager", device="cpu")
+    b = tcosim.ap_workload_trace("hist", 12, 64, "megakernel", device="cpu")
+    assert tcosim._ap_workload_trace.cache_info().currsize == 2
+    ref = jcosim.ap_workload_trace("hist", 12, 64, "megakernel")
+    for t in (a, b):
+        np.testing.assert_array_equal(t.activity, ref.activity)
+        assert (t.source, t.native_s) == (ref.source, ref.native_s)
+
+
+@pytest.mark.parametrize("w", SUITE)
+def test_unported_options_raise(w):
+    rng = np.random.default_rng(0)
+    call = {"sort": lambda **kw: tsort.ap_sort(
+                rng.integers(0, 8, 32, dtype=np.uint64), m=3, **kw),
+            "hist": lambda **kw: thist.ap_histogram(
+                rng.integers(0, 8, 32, dtype=np.uint64), 4, m=3, **kw),
+            "knn": lambda **kw: tknn.ap_knn(
+                rng.integers(0, 8, (32, 2), dtype=np.uint64),
+                np.array([1, 2], np.uint64), 3, m=3, **kw),
+            "spmv": lambda **kw: tspmv.ap_spmv(
+                [0, 1], [1, 0], [2, 3], [1, 1], 2, m=3, **kw)}[w]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call(mode="megakernel", n_shards=2, device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        call(mode="pallas", device="cpu")
+
+
+#: Bound for the AP cases at ``n_cg=30``: the suite's concentrated AP
+#: logic power leaves the 30-iteration CG furthest from converged, where
+#: the float32 sum order (XLA's against PyTorch's) shows most — up to
+#: 0.059 °C on hist/ap min_C, with no DTM throttling on either side.  At
+#: ``n_cg=120`` both packages agree to 1e-3 °C (ROADMAP Queue 3, item 4).
+UNCONVERGED_CG_ATOL_C = 0.1
+
+
+@pytest.mark.parametrize("workloads, n_cg", [(("sort", "hist"), 30),
+                                             (("hist",), 120)],
+                         ids=["cg30", "cg120"])
+def test_run_stack_cosim_suite_matches_reference(workloads, n_cg):
+    """The whole path — capture, assembly, replay — for sort and hist:
+    SIMD cases within the Picard residual bar; AP cases within
+    UNCONVERGED_CG_ATOL_C at 30 CG iterations and within 1e-3 °C once
+    the CG converges; verdicts, convergence and throttling equal."""
+    kw = dict(workloads=workloads, n_dram=1, grid_n=8, n_intervals=12,
+              steps_per_interval=1, n_cg=n_cg)
+    ref = jfb.run_stack_cosim(**kw)
+    got = tfb.run_stack_cosim(device="cpu", **kw)
+    assert got["interval_s"] == ref["interval_s"]
+    for w in workloads:
+        for m in ("ap", "simd"):
+            r, g = ref[w][m], got[w][m]
+            atol = 1e-3 if n_cg > 30 else (
+                UNCONVERGED_CG_ATOL_C if m == "ap" else PEAK_ATOL_C)
+            for name in ("peak_C", "min_C"):
+                np.testing.assert_allclose(getattr(g, name),
+                                           getattr(r, name), rtol=0,
+                                           atol=atol,
+                                           err_msg=f"{w}/{m} {name}")
+            np.testing.assert_allclose(g.throttle, r.throttle, rtol=0,
+                                       atol=1e-3)
+            assert g.converged == r.converged
+            assert (g.dram_time_above_limit_s > 0) \
+                == (r.dram_time_above_limit_s > 0)
