@@ -68,17 +68,50 @@ these phases, each printing one line with its result and seconds:
     verdict equal to the reference's and its maximum DRAM peak within
     0.1 °C of it — sort/ap, whose trajectory runs through the DTM ramp,
     within 1 °C (``PEAK_TOL_EXCEPTIONS_C``); then sort/ap again with 12
-    Picard iterations, printed beside the reference's.
+    Picard iterations, printed beside the reference's;
+17. the flash-attention kernel against its plain version (run one
+    sequence at a time), within ``FLASH_TOL``: 1e-4 absolute at float32,
+    and for bfloat16 inputs one bfloat16 step (2^-7 relative) more. The
+    shapes are those phases 18 and 19 launch it at (the serve prefill
+    q [4, 5120, 32, 120], k/v [4, 5120, 8, 120], causal, window 4096;
+    ``forward`` at 5136 positions, whose last key tile is ragged; the
+    reference check's 4608), then the prefill shape at B = 1, causal MHA
+    [1, 4096, 32, 64], the reference test's ragged (Sq 50, Sk 70) and
+    decode (Sq 1, Sk 96) shapes, causal and not, and the B = 1 prefill
+    shape in bfloat16; each timed with CUDA events beside its bound
+    (4·dh flops a visible (q, k) pair at the card's rate for the input
+    type: float32 outside the tensor cores, or bfloat16 on them; or its
+    bytes), the plain version and, as a yardstick the port never calls,
+    ``scaled_dot_product_attention`` with the same boolean mask;
+18. the serving path at full width: h2o-danube-3-4b, all 24 layers,
+    float32 weights from a seeded CUDA generator, ``serve_lm.generate``
+    of 4 prompts of 5120 tokens and 16 greedy steps: finite logits, the
+    flash kernel launched exactly once a layer by prefill, a 4096-slot
+    ring holding the last 4096 positions, and prefill + decode of the
+    first sequence within ``SERVE_FORWARD_TOL`` of ``forward`` with the
+    same argmax at every step; prints prefill and decode tokens/s, peak
+    memory, and the device time by kernel of a profiled decode step and
+    of a profiled prefill (the flash kernel's share);
+19. the same model cut to 2 layers, weights
+    ``interop.lm_params_from_seed(cfg, 0)``, a 4608-token prompt and 4
+    greedy steps: each step's argmax equal to the JAX reference's, its
+    leading logits and sum of squares within ``SERVE_LEAD_TOL`` and
+    ``SERVE_SUMSQ_RTOL`` of ``REFERENCE_SERVE_2L``.
 
-Phases 5, 9-12 and 14-16 each set every kernel's launch counter to 0 just
-before they drive their path and read the counters just after; a kernel
-of the path that was not launched fails the phase.
+Phases 5, 9-12, 14-16, 18 and 19 each set every kernel's launch counter
+to 0 just before they drive their path and read the counters just after;
+a kernel of the path that was not launched fails the phase.  The model's
+entry points (``forward``, ``prefill``, ``decode_step``) and phase 17's
+comparisons run their float32 matrix products without TF32.
 
 The line before the last is a JSON object of per-kernel measurements (the
 megakernel's row holds the sort round at 32768 lanes; its launches are
-those of phase 14's megakernel-mode captures); the
-last line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
-before those lines.  Without a CUDA card, or outside a checkout of the
+those of phase 14's megakernel-mode captures; the flash kernel's row
+holds phase 17's serve prefill shape at B = 4, its launches are phase
+18's prefill and its ``device_ms`` the profiled prefill's time a launch
+at that shape); the last line is ``{"ok": true, "device": {...}}``.  Any
+failure exits non-zero before those lines, and the line before them gives the whole run's
+seconds.  Without a CUDA card, or outside a checkout of the
 repository, it exits non-zero and prints no result.  The full results also
 go to ``chiprun_out/chip_smoke.json``.
 """
@@ -159,12 +192,58 @@ PEAK_TOL_EXCEPTIONS_C = {("sort", "ap"): 1.0}
 #: JAX reference, where its Picard loop converges (phase 16, printed).
 REFERENCE_SORT_AP_PICARD12_C = 123.0300
 
+#: ``repro.models.serve.prefill`` and 4 greedy ``decode_step``s of
+#: h2o-danube-3-4b at its published width with 2 layers, run on the CPU
+#: with weights ``interop.lm_params_seed_numpy(cfg, 0)``, the prompt
+#: ``np.random.default_rng(0).integers(0, 32000, (1, 4608))`` and
+#: ``PerfConfig(attn_chunk=512)``: for the prefill's logits and each decode
+#: step's, the argmax, the first six logits and the sum of squares of all
+#: of them (phase 19).  The smallest gap between a step's two largest
+#: logits is 0.0167, far above the tolerances below.
+REFERENCE_SERVE_2L = [
+    (23443, (-0.48112472891807556, -1.1390254497528076, 0.5791637301445007,
+             -1.1495860815048218, -0.46023398637771606,
+             -0.38058769702911377), 32193.708438297977),
+    (10408, (-0.3556922376155853, 1.7145614624023438, 0.10243713110685349,
+             0.9575319290161133, 0.010075037367641926, 1.7179712057113647),
+     32239.532514623614),
+    (9633, (0.8852766156196594, -0.23269519209861755, -1.4452382326126099,
+            0.480852335691452, -0.1002015694975853, 0.8883418440818787),
+     32294.28848772584),
+    (29029, (0.0329468734562397, -0.4416729509830475, -1.465195655822754,
+             1.050851821899414, 0.47615256905555725, -1.2465378046035767),
+     32075.21782659171),
+    (9829, (-0.8177714943885803, 0.4378621578216553, -0.5200179219245911,
+            0.16692277789115906, -1.9246289730072021, -1.3809274435043335),
+     32027.434082329513),
+]
+SERVE_REF_PROMPT = 4608
+#: float32 in both, summed in another order (XLA's CPU against cuBLAS and
+#: the flash kernel): logits of magnitude about 1 are held to 2e-3, their
+#: sum of squares to 5e-4 relative, and every argmax exactly.
+SERVE_LEAD_TOL = 2e-3
+SERVE_SUMSQ_RTOL = 5e-4
+#: prefill + decode against ``forward`` on one sequence at the full 24
+#: layers: the same float32 function through other kernels (cuBLAS picks
+#: other algorithms for one row than for 5,135; decode attends through
+#: PyTorch's einsum, prefill and forward through the flash kernel).
+SERVE_FORWARD_TOL = 1e-3
+#: the flash kernel against its plain version, as (rtol, atol) in
+#: ``|kernel - plain| <= atol + rtol * |plain|``.  Both compute in float32
+#: and sum in another order (the online softmax against the materialised
+#: one): 1e-4 absolute on outputs of magnitude below 1.  For bfloat16
+#: inputs both round that float32 result to bfloat16, so they may differ
+#: by one bfloat16 step (at most 2^-7 of the value) on top of it.
+FLASH_TOL = {"float32": (0.0, 1e-4), "bfloat16": (2.0 ** -7, 1e-4)}
+
 #: H100 SXM peaks at the full 700 W limit (NVIDIA data sheet): HBM3 rate,
 #: and the non-tensor 32-bit rate, used for both float32 and the 32-bit
 #: integer operations of the AP kernel (an upper bound on the int32 rate,
-#: so the time bound stays a lower bound).
+#: so the time bound stays a lower bound); the dense bfloat16 tensor-core
+#: rate for work on bfloat16 inputs.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 LINES: list[str] = []
 
@@ -191,9 +270,10 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -361,13 +441,15 @@ def _kernel_wrappers() -> dict:
     ``.launches`` counter it adds one to where it launches its kernel."""
     from repro_torch.kernels.ap_match import ops as ap_ops
     from repro_torch.kernels.ap_megakernel import ops as mk_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mg_smooth import ops as mg_ops
     from repro_torch.kernels.thermal_stencil import ops as st_ops
     return {"thermal_stencil": st_ops.apply_operator_fields,
             "ap_match": ap_ops.run_schedule,
             "mg_smooth": mg_ops.rb_line_sweep,
             "thermal_stencil_uniform": st_ops.apply_operator,
-            "ap_megakernel": mk_ops.run_group}
+            "ap_megakernel": mk_ops.run_group,
+            "flash_attention": fa_ops.mha}
 
 
 def reset_launches() -> None:
@@ -1143,6 +1225,260 @@ def suite_stack(results):
     return launches
 
 
+#: phase 17's shapes: (B, Sq, Sk, Hq, Hkv, dh, causal, window, dtype, reps).
+#: The first three are those phases 18 and 19 launch the kernel at: the
+#: serve path's prefill (B = 4), ``forward`` on prompt + 16 tokens (a
+#: ragged last key tile) and the 2-layer reference check's prompt.
+FLASH_CASES = {
+    "serve_prefill": (4, 5120, 5120, 32, 8, 120, True, 4096, "float32", 3),
+    "forward": (1, 5136, 5136, 32, 8, 120, True, 4096, "float32", 3),
+    "reference_prefill": (1, 4608, 4608, 32, 8, 120, True, 4096, "float32",
+                          3),
+    "prefill": (1, 5120, 5120, 32, 8, 120, True, 4096, "float32", 5),
+    "mha_4096": (1, 4096, 4096, 32, 32, 64, True, None, "float32", 5),
+    "ragged_causal": (1, 50, 70, 2, 1, 16, True, None, "float32", 100),
+    "ragged": (1, 50, 70, 2, 1, 16, False, None, "float32", 100),
+    "decode_causal": (2, 1, 96, 4, 4, 32, True, None, "float32", 100),
+    "decode": (2, 1, 96, 4, 4, 32, False, None, "float32", 100),
+    "prefill_bf16": (1, 5120, 5120, 32, 8, 120, True, 4096, "bfloat16", 5),
+}
+
+
+@phase("17 flash kernel")
+def check_flash(results):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.models.layers import f32_matmul
+
+    def plain(q, k, v, **kw):
+        # one sequence at a time, so the [Hq, Sq, Sk] scores of the serve
+        # shape (3.4 GB a sequence) fit on the card
+        return torch.cat([ops.mha(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                  backend="plain", **kw)
+                          for b in range(q.shape[0])])
+
+    for label, (B, sq, sk, hq, hkv, dh, causal, window, dt, reps) in \
+            FLASH_CASES.items():
+        dtype = getattr(torch, dt)
+        rng = np.random.default_rng(sq + sk + dh)
+        q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   .to("cuda", dtype) for shape in (
+                       (B, sq, hq, dh), (B, sk, hkv, dh), (B, sk, hkv, dh)))
+        kw = dict(causal=causal, window=window)
+        rtol, atol = FLASH_TOL[dt]
+        with f32_matmul():
+            got = ops.mha(q, k, v, **kw).float()
+            want = plain(q, k, v, **kw).float()
+            diff = (got - want).abs()
+            err = float(diff.max())
+            worst = float((diff / (atol + rtol * want.abs())).max())
+            del got, want, diff
+            check(worst <= 1.0, f"flash {label}: |kernel - plain| up to "
+                  f"{worst:.3g} times its limit {atol:g} + {rtol:g}|plain| "
+                  f"(max abs {err:.3g})")
+            mask = ref.attention_mask(sq, sk, causal=causal, window=window,
+                                      device="cuda")
+            pairs = int(mask.sum()) * B * hq
+            esz = q.element_size()
+            b_ms, b_by = bound_ms(
+                esz * (2 * B * sq * hq + 2 * B * sk * hkv) * dh,
+                4 * dh * pairs,
+                BF16_OPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S)
+            ms = cuda_ms(lambda: ops.mha(q, k, v, **kw), reps)
+            plain_ms = cuda_ms(lambda: plain(q, k, v, **kw),
+                               max(2, reps // 5))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=hq != hkv), reps)
+        results[f"flash_{label}"] = dict(
+            shape=[B, sq, sk, hq, hkv, dh], causal=causal, window=window,
+            dtype=dt, pairs=pairs, max_abs_err=err, tol=[rtol, atol],
+            err_over_tol=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib,
+            tflops=4 * dh * pairs / ms / 1e9)
+        say(f"  flash {label} {[B, sq, sk, hq, hkv, dh]} causal={causal} "
+            f"window={window} {dt}: max err {err:.2e}, {worst:.3f} of the "
+            f"limit {atol:g} + {rtol:g}|plain|; kernel {ms:.3f} ms "
+            f"({4 * dh * pairs / ms / 1e9:.2f} TFLOP/s), plain "
+            f"{plain_ms:.3f} ms, SDPA {lib:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
+
+
+def _profile_serve(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time, all
+    kernels' device time, the flash kernel's total and per launch [ms],
+    and the five kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = _device_events(prof)
+    busy = sum(_self_device_us(a) for a in events)
+    hits = [a for a in events if "flash_fwd" in a.key]
+    flash = sum(_self_device_us(a) for a in hits)
+    n = sum(a.count for a in hits)
+    top = sorted(((_self_device_us(a), a.count, a.key) for a in events),
+                 reverse=True)[:5]
+    return dict(wall_ms=wall * 1e3, device_ms=busy / 1e3,
+                flash_ms=flash / 1e3,
+                flash_launches=n,
+                flash_ms_per_launch=flash / 1e3 / n if n else None,
+                top=[dict(kernel=k[:80], device_ms=us / 1e3, launches=c)
+                     for us, c, k in top])
+
+
+@phase("18 serve path")
+def serve_path(results):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve_lm import generate
+    cfg = get_config("h2o-danube-3-4b")
+    B, P, G = 4, 5120, 16
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = torch.randint(0, cfg.vocab, (B, P),
+                           generator=torch.Generator().manual_seed(0))
+    generate(params, tokens[:1, :64], cfg, 1, device="cuda")    # warm-up
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = generate(params, tokens, cfg, G, device="cuda")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"prefill launched the flash kernel {launches['flash_attention']} "
+          f"times, not once a layer ({cfg.n_layers})")
+    check(bool(torch.isfinite(out["logits"]).all()), "non-finite logits")
+    cache = out["caches"]["layers"]
+    W = cfg.sliding_window
+    check(cache["k"].shape[2] == W, f"cache holds {cache['k'].shape[2]} "
+          f"slots, not the window's {W}")
+    held = torch.sort(cache["slot_pos"][0].long()).values.cpu()
+    check(torch.equal(held, torch.arange(P + G - W, P + G)),
+          "the ring buffer does not hold the last W positions")
+    say(f"  h2o-danube-3-4b, {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+        f"f32 parameters (init {init_s:.2f} s): prefill {B}x{P} in "
+        f"{out['prefill_s']:.3f} s ({B * P / out['prefill_s']:.0f} tok/s), "
+        f"{G} greedy steps in {out['decode_s']:.3f} s "
+        f"({B * G / out['decode_s']:.1f} tok/s); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; {launches['flash_attention']} flash "
+        f"launches; ring holds positions {P + G - W}..{P + G - 1}")
+
+    # prefill + teacher-forced decode of sequence 0 against forward
+    seq = torch.cat([tokens[:1].cuda(), out["tokens"][:1, :G]], 1)
+    reset_launches()
+    full, _ = M.forward(params, {"tokens": seq}, cfg)
+    fwd_launches = read_launches()["flash_attention"]
+    errs = [float((out["logits"][i, 0] - full[0, P - 1 + i]).abs().max())
+            for i in range(G + 1)]
+    same = [int(out["logits"][i, 0].argmax()) == int(full[0, P - 1 + i]
+                                                        .argmax())
+            for i in range(G + 1)]
+    check(max(errs) <= SERVE_FORWARD_TOL and all(same),
+          f"prefill + decode vs forward: max err {max(errs):.3g} (tol "
+          f"{SERVE_FORWARD_TOL}), argmax equal {same}")
+    check(fwd_launches == cfg.n_layers, f"forward launched the flash "
+          f"kernel {fwd_launches} times")
+    del full
+    say(f"  prefill + {G} decode steps vs forward on sequence 0: max |diff| "
+        f"{max(errs):.2e} (tol {SERVE_FORWARD_TOL}), argmax equal at every "
+        f"step")
+    from repro_torch.models import serve as SV
+    step = _profile_serve(lambda: SV.decode_step(
+        params, out["tokens"][:, -1:], out["caches"], P + G, cfg))
+    say(f"  profiled decode step (B={B}): wall {step['wall_ms']:.2f} ms, "
+        f"device {step['device_ms']:.2f} ms")
+    for t in step["top"]:
+        say(f"    {t['device_ms']:9.3f} ms {t['launches']:5d} launches "
+            f"{t['kernel'][:60]}")
+    prof = _profile_serve(lambda: SV.prefill(
+        params, {"tokens": tokens.cuda()}, cfg, max_seq=P + G))
+    if prof["flash_launches"] and prof["device_ms"] > 0:
+        say(f"  profiled prefill: device {prof['device_ms']:.1f} ms, flash "
+            f"{prof['flash_ms']:.1f} ms "
+            f"({100 * prof['flash_ms'] / prof['device_ms']:.1f} %) in "
+            f"{prof['flash_launches']} launches, "
+            f"{prof['flash_ms_per_launch']:.3f} ms a launch")
+    else:
+        say("  profiled prefill: the profiler recorded no device time "
+            "(not measured)")
+    for t in prof["top"]:
+        say(f"    {t['device_ms']:9.2f} ms {t['launches']:5d} launches "
+            f"{t['kernel'][:60]}")
+    results["serve_path"] = dict(
+        batch=B, prompt=P, gen=G, n_params=n_params, init_s=init_s,
+        prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+        prefill_tok_s=B * P / out["prefill_s"],
+        decode_tok_s=B * G / out["decode_s"], peak_bytes=peak,
+        launches=launches, forward_launches=fwd_launches,
+        forward_max_err=max(errs), profile=prof, decode_profile=step)
+    del params, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+@phase("19 serve reference check")
+def serve_reference(results):
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.serve_lm import generate
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"), n_layers=2)
+    params = interop.lm_params_from_seed(cfg, 0, "cuda")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab,
+                                             (1, SERVE_REF_PROMPT))
+    G = len(REFERENCE_SERVE_2L) - 1
+    reset_launches()
+    out = generate(params, torch.from_numpy(toks), cfg, G, device="cuda")
+    launches = read_launches()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"{launches['flash_attention']} flash launches")
+    worst_lead, worst_ss = 0.0, 0.0
+    for i, (am, lead, ss) in enumerate(REFERENCE_SERVE_2L):
+        lg = out["logits"][i, 0].double().cpu().numpy()
+        d_lead = float(np.abs(lg[:len(lead)] - np.array(lead)).max())
+        d_ss = abs(float((lg ** 2).sum()) - ss) / ss
+        check(int(lg.argmax()) == am, f"step {i}: argmax {int(lg.argmax())}"
+              f", JAX {am}")
+        check(d_lead <= SERVE_LEAD_TOL and d_ss <= SERVE_SUMSQ_RTOL,
+              f"step {i}: leading logits off by {d_lead:.3g}, sum of "
+              f"squares by {d_ss:.3g} relative")
+        worst_lead, worst_ss = max(worst_lead, d_lead), max(worst_ss, d_ss)
+    say(f"  h2o-danube-3-4b at 2 layers, prompt {SERVE_REF_PROMPT}, {G} "
+        f"greedy steps: argmax as JAX at every step, leading logits within "
+        f"{worst_lead:.2e} (tol {SERVE_LEAD_TOL}), sum of squares within "
+        f"{worst_ss:.2e} relative (tol {SERVE_SUMSQ_RTOL}); prefill "
+        f"{out['prefill_s']:.3f} s")
+    results["serve_reference"] = dict(
+        prompt=SERVE_REF_PROMPT, gen=G, launches=launches,
+        max_lead_err=worst_lead, max_sumsq_rel_err=worst_ss,
+        prefill_s=out["prefill_s"], decode_s=out["decode_s"])
+    return launches
+
+
 # ---------------------------------------------------------------------------
 
 def _kernel_row(name, source, replaces, launches, r, **extra):
@@ -1167,6 +1503,7 @@ def main() -> int:
               " run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    t_start = time.perf_counter()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1193,6 +1530,9 @@ def main() -> int:
     mk_launches = suite_capture(results)
     sort_launches = paper_sort(results)
     suite_launches = suite_stack(results)
+    check_flash(results)
+    serve_launches = serve_path(results)
+    ref_launches = serve_reference(results)
 
     src = "src/repro_torch/kernels"
     ref = "src/repro/kernels"
@@ -1230,8 +1570,22 @@ def main() -> int:
                         "paper_sort_2^20": sort_launches["ap_megakernel"],
                         "suite_stack_path":
                             suite_launches["ap_megakernel"]}),
+        _kernel_row("flash_attention.mha",
+                    f"{src}/flash_attention/csrc/flash_attention.cu",
+                    f"{ref}/flash_attention/kernel.py:85",
+                    serve_launches["flash_attention"],
+                    results["flash_serve_prefill"],
+                    device_ms=results["serve_path"]["profile"][
+                        "flash_ms_per_launch"],
+                    launches_by_path={
+                        "serve_prefill": serve_launches["flash_attention"],
+                        "forward": results["serve_path"]["forward_launches"],
+                        "reference_check_prefill":
+                            ref_launches["flash_attention"]}),
     ]
     results["kernels"] = kernels
+    results["total_s"] = time.perf_counter() - t_start
+    say(f"all phases passed in {results['total_s']:.1f} s")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

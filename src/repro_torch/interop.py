@@ -2,7 +2,7 @@
 
 Plain NumPy in, tensors out: the parity tests convert the reference's
 arrays with ``np.asarray`` and hand them here, so both packages run on the
-same grids, fields, planes and schedules.  This module imports nothing of
+same grids, fields, planes, schedules and LM weights.  This module imports nothing of
 the reference package.
 """
 from __future__ import annotations
@@ -11,8 +11,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import APState, PassSchedule, schedule_tensors
 from repro_torch.kernels.ap_megakernel.ref import OpGroup
+from repro_torch.models.model import not_ported, vocab_padded
 from repro_torch.workloads._device import MinExtractTrace
 
 
@@ -118,3 +120,77 @@ def min_extract_trace_from_reference(tr):
         *(np.array(getattr(tr, k)) for k in (
             "copy_matched", "m1", "m2", "take", "count", "tie_tag",
             "masked", "device_counters")))
+
+
+def lm_params_from_reference(params_np: dict, device="cuda") -> dict:
+    """The reference's dense-family params pytree, as NumPy arrays with
+    the leading layer axis of ``params["layers"]`` -> the port's params
+    on ``device`` (``params["layers"]`` a list of per-layer dicts)."""
+    dev = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return torch.from_numpy(np.require(tree, requirements="CW")).to(dev)
+
+    def layer(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    out = conv({k: v for k, v in params_np.items() if k != "layers"})
+    stacked = params_np["layers"]
+    n_layers = len(next(iter(next(iter(stacked.values())).values())))
+    out["layers"] = [conv(layer(stacked, i)) for i in range(n_layers)]
+    return out
+
+
+def lm_params_seed_numpy(cfg: ArchConfig, seed: int) -> dict:
+    """Dense-family weights from ``np.random.default_rng(seed)`` at the
+    reference's init scales, in the reference's pytree layout (float32
+    NumPy arrays; stacked layers): embed 0.02, each dense ``d_in**-0.5``,
+    ``wo`` ``(H*dh)**-0.5``, biases 0, norm weights 1 and biases 0.
+
+    The draws run in this order, each over all layers at once: embed,
+    lm_head, wq, wk, wv, wo, w_gate, w_up, w_down.
+    """
+    if cfg.family != "dense":
+        raise not_ported(cfg.family)
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, scale):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= np.float32(scale)
+        return a
+
+    L, d, dh, ff = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
+    hq, hkv, vp = cfg.n_heads * dh, cfg.n_kv_heads * dh, vocab_padded(cfg)
+
+    def norm(*lead):
+        n = {"w": np.ones(lead + (d,), np.float32)}
+        if cfg.norm_type == "layernorm":
+            n["b"] = np.zeros(lead + (d,), np.float32)
+        return n
+
+    p = {"embed": normal((vp, d), 0.02),
+         "lm_head": normal((d, vp), d ** -0.5),
+         "final_norm": norm()}
+    attn = {"wq": normal((L, d, hq), d ** -0.5),
+            "wk": normal((L, d, hkv), d ** -0.5),
+            "wv": normal((L, d, hkv), d ** -0.5),
+            "wo": normal((L, hq, d), hq ** -0.5)}
+    if cfg.qkv_bias:
+        attn.update(bq=np.zeros((L, hq), np.float32),
+                    bk=np.zeros((L, hkv), np.float32),
+                    bv=np.zeros((L, hkv), np.float32))
+    mlp = {"w_gate": normal((L, d, ff), d ** -0.5),
+           "w_up": normal((L, d, ff), d ** -0.5),
+           "w_down": normal((L, ff, d), ff ** -0.5)}
+    p["layers"] = {"attn": attn, "mlp": mlp, "ln1": norm(L), "ln2": norm(L)}
+    return p
+
+
+def lm_params_from_seed(cfg: ArchConfig, seed: int, device="cuda") -> dict:
+    """The port's params for :func:`lm_params_seed_numpy`'s weights: the
+    same numbers the reference gets from the same call's arrays."""
+    return lm_params_from_reference(lm_params_seed_numpy(cfg, seed), device)

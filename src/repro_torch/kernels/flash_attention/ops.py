@@ -1,0 +1,101 @@
+"""Blocked (flash) attention forward: CUDA kernel and plain version.
+
+:func:`mha` takes the model-layer layout q [B, Sq, Hq, dh], k/v
+[B, Sk, Hkv, dh] (GQA allowed) and attends over the last Sq positions of
+an Sk-long sequence.  For a tensor on the CPU it runs the plain
+:func:`ref.mha`; for a CUDA tensor it launches the hand-written kernel
+``csrc/flash_attention.cu`` (which replaces the TPU kernel
+``flash_mha_kernel`` of the reference package) or raises — it never falls
+back.  ``mha.launches`` counts kernel launches.
+
+The kernel indexes the KV head of query head h as ``h // (Hq // Hkv)``
+instead of repeating K/V, masks the ragged edges instead of padding, and
+skips key tiles that the causal and window masks hide entirely (such a
+tile leaves the running max, sum and output unchanged in the online
+softmax, so skipping it is exact).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ref as _ref
+
+#: head dims the kernel is compiled for (one template instance each)
+HEAD_DIMS = (16, 32, 64, 120, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, window: int | None = None,
+        scale: float | None = None, backend: str = "kernel",
+        block_q: int = 64, block_k: int = 64) -> torch.Tensor:
+    """Attention over the last Sq positions of an Sk-long sequence.
+
+    ``backend="plain"`` forces the plain version on any device (the card
+    tests compare the two with it; no path of the port passes it).
+    ``block_q``/``block_k`` are the reference's tile knobs, accepted for
+    its signature: the CUDA kernel's tile is fixed at 64 x 64 and its
+    result does not depend on the tiling beyond float rounding.
+    """
+    if backend not in ("kernel", "plain"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "plain" or q.device.type == "cpu":
+        return _ref.mha(q, k, v, causal=causal, window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be [B,Sq,Hq,dh] and k, v [B,Sk,Hkv,dh]; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, sq, hq, dh = q.shape
+    _, sk, hkv, dk = k.shape
+    if k.shape[0] != B or dk != dh:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch or head dim")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    if window is not None and window < 0:
+        raise ValueError(f"window must be None or >= 0; got {window}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh}: the kernel takes {HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share one of {list(_DTYPES)}; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must lie on one device")
+    scale = float(scale if scale is not None else dh ** -0.5)
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = torch.empty((B, sq, hq, dh), dtype=torch.float32, device=q.device)
+    if out.numel() == 0 or sk == 0:
+        return out.zero_().to(q.dtype)
+    rc = _lib().flash_mha(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, sq, sk, hq, hkv, dh, _DTYPES[q.dtype], int(causal),
+        -1 if window is None else int(window), ctypes.c_float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_mha")
+    mha.launches += 1
+    return out.to(q.dtype)
+
+
+mha.launches = 0
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, with a 16-byte aligned base (the kernel's vector
+    loads need it; a view with a storage offset may not have one)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    fn = lib.flash_mha
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+            + [ctypes.c_float, ctypes.c_void_p]
+    return lib

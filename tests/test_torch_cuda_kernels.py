@@ -18,6 +18,7 @@ from repro_torch.core.engine import APEngine, PassSchedule, bucket_schedule
 from repro_torch.kernels.ap_match import ops as ap_ops
 from repro_torch.kernels.ap_megakernel import ops as mk_ops
 from repro_torch.kernels.ap_megakernel import ref as mk_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.mg_smooth import ops as mg_ops
 from repro_torch.kernels.thermal_stencil import ops as st_ops
 
@@ -260,3 +261,59 @@ def test_engine_megakernel_run_card_equals_host(cuda):
     assert card.counters() == host.counters()
     for a, b in zip(card.trace_events(), host.trace_events()):
         np.testing.assert_array_equal(a, b)
+
+
+#: the flash kernel sums in another order than the plain version's
+#: materialised softmax: 1e-4 absolute at float32 (outputs of magnitude
+#: below 1); for bfloat16 inputs both round that float32 result to
+#: bfloat16, so one bfloat16 step (2^-7 relative) more.  (rtol, atol)
+FLASH_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
+
+
+def _flash_inputs(shape_q, shape_kv, dtype, seed, cuda):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                 .to(cuda, dtype) for s in (shape_q, shape_kv, shape_kv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,sq,sk,hq,hkv,dh,window", [
+    (1, 4096, 4096, 32, 32, 64, None),   # causal MHA, no window
+    (1, 512, 512, 32, 8, 120, 200),      # the serving path's GQA, dh, window
+    (2, 1040, 1040, 32, 8, 120, 1000),   # the same at B = 2, ragged last tile
+    (1, 50, 70, 2, 1, 16, None),         # ragged
+    (2, 1, 96, 4, 4, 32, None),          # decode
+    (2, 64, 64, 4, 2, 32, 16),           # window inside a tile
+    (1, 8, 8, 2, 2, 16, 0),              # every row fully masked
+])
+def test_flash_kernel_matches_plain(cuda, B, sq, sk, hq, hkv, dh, window,
+                                    causal, dtype):
+    q, k, v = _flash_inputs((B, sq, hq, dh), (B, sk, hkv, dh), dtype,
+                            sq + sk + dh, cuda)
+    before = fa_ops.mha.launches
+    got = fa_ops.mha(q, k, v, causal=causal, window=window)
+    assert fa_ops.mha.launches == before + 1
+    want = fa_ops.mha(q, k, v, causal=causal, window=window,
+                      backend="plain")
+    assert fa_ops.mha.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert torch.isfinite(got).all()
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 4, 40), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.mha(q, q, q)
+    q = torch.zeros((1, 8, 4, 32), device=cuda)
+    with pytest.raises(ValueError):
+        fa_ops.mha(q, q[:, :, :3], q[:, :, :3])
+    with pytest.raises(ValueError):
+        fa_ops.mha(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError):
+        fa_ops.mha(q, q.cpu(), q.cpu())
+    with pytest.raises(ValueError, match="window"):
+        fa_ops.mha(q, q, q, window=-1)

@@ -32,7 +32,9 @@ def test_port_imports_neither_jax_nor_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 31          # every module of both slices was imported
+    # every module of the four slices was imported, the configs, models and
+    # flash-attention modules included
+    assert n_modules >= 66
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
