@@ -77,12 +77,17 @@ these phases, each printing one line with its result and seconds:
     ``forward`` at 5136 positions, whose last key tile is ragged; the
     reference check's 4608), then the prefill shape at B = 1, causal MHA
     [1, 4096, 32, 64], the reference test's ragged (Sq 50, Sk 70) and
-    decode (Sq 1, Sk 96) shapes, causal and not, and the B = 1 prefill
-    shape in bfloat16; each timed with CUDA events beside its bound
-    (4·dh flops a visible (q, k) pair at the card's rate for the input
-    type: float32 outside the tensor cores, or bfloat16 on them; or its
-    bytes), the plain version and, as a yardstick the port never calls,
-    ``scaled_dot_product_attention`` with the same boolean mask;
+    decode (Sq 1, Sk 96) shapes, causal and not, and the prefill shape in
+    bfloat16 at B = 1 and B = 4; each timed with CUDA events beside its
+    bound (for bfloat16 inputs 4·dh flops a visible (q, k) pair at the
+    bf16 tensor-core rate; for float32 the kernel's 3xTF32, 12·dh flops a
+    pair at the TF32 rate; or its bytes), with the float32 CUDA-core
+    bound (4·dh flops at 67 TFLOP/s) and the exponentials' bound (one a
+    pair on the SFUs) printed beside it, the plain version and, as a
+    yardstick the port never calls, ``scaled_dot_product_attention`` with
+    the same boolean mask.  First it reads the built flash library with
+    ``cuobjdump -sass`` and fails unless every bfloat16 instance issues
+    HGMMA (wgmma) and every float32 one HMMA or HGMMA;
 18. the serving path at full width: h2o-danube-3-4b, all 24 layers,
     float32 weights from a seeded CUDA generator, ``serve_lm.generate``
     of 4 prompts of 5120 tokens and 16 greedy steps: finite logits, the
@@ -244,6 +249,13 @@ FLASH_TOL = {"float32": (0.0, 1e-4), "bfloat16": (2.0 ** -7, 1e-4)}
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+#: the dense TF32 tensor-core rate: the flash kernel's float32 path runs
+#: its products there as 3xTF32 (three TF32 products a product)
+TF32_OPS_PER_S = 495e12
+#: exponentials: 16 a clock on each SM's special-function units, 132 SMs,
+#: at the 1,980 MHz boost clock (an upper bound on the rate, so the time
+#: is a lower bound); the flash kernel takes one a visible (q, k) pair
+EXP_PER_S = 16 * 132 * 1.98e9
 
 LINES: list[str] = []
 
@@ -1241,7 +1253,52 @@ FLASH_CASES = {
     "decode_causal": (2, 1, 96, 4, 4, 32, True, None, "float32", 100),
     "decode": (2, 1, 96, 4, 4, 32, False, None, "float32", 100),
     "prefill_bf16": (1, 5120, 5120, 32, 8, 120, True, 4096, "bfloat16", 5),
+    "serve_prefill_bf16": (4, 5120, 5120, 32, 8, 120, True, 4096, "bfloat16",
+                           3),
 }
+
+
+def _sass_mma_counts(lib_path) -> dict:
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in each kernel of a
+    built library, read with ``cuobjdump -sass``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            counts[cur] = {"HGMMA": 0, "HMMA": 0}
+        elif cur is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line or f" {op} " in line:
+                    counts[cur][op] += 1
+    return counts
+
+
+def check_flash_sass(results) -> None:
+    """Every bf16 instance of the flash kernel issues wgmma (HGMMA) and
+    every f32 instance tensor-core MMAs (HMMA or HGMMA)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+    src = next(s for s in _build.sources() if s.stem == "flash_attention")
+    counts = _sass_mma_counts(_build.target(src))
+    bf16 = {k: c for k, c in counts.items() if "flash_fwd_bf16" in k}
+    f32 = {k: c for k, c in counts.items() if "flash_fwd_f32" in k}
+    check(len(bf16) == len(f32) == len(ops.HEAD_DIMS),
+          f"{len(bf16)} bf16 and {len(f32)} f32 flash kernels in the SASS, "
+          f"not {len(ops.HEAD_DIMS)} each")
+    check(all(c["HGMMA"] > 0 for c in bf16.values()),
+          f"a bf16 flash kernel without HGMMA: {bf16}")
+    check(all(c["HMMA"] + c["HGMMA"] > 0 for c in f32.values()),
+          f"an f32 flash kernel without HMMA or HGMMA: {f32}")
+    say(f"  SASS: bf16 kernels HGMMA "
+        f"{sorted(c['HGMMA'] for c in bf16.values())}, HMMA "
+        f"{sorted(c['HMMA'] for c in bf16.values())}; f32 kernels HMMA "
+        f"{sorted(c['HMMA'] for c in f32.values())}, HGMMA "
+        f"{sorted(c['HGMMA'] for c in f32.values())}")
+    results["flash_sass"] = counts
 
 
 @phase("17 flash kernel")
@@ -1259,6 +1316,7 @@ def check_flash(results):
                                   backend="plain", **kw)
                           for b in range(q.shape[0])])
 
+    check_flash_sass(results)
     for label, (B, sq, sk, hq, hkv, dh, causal, window, dt, reps) in \
             FLASH_CASES.items():
         dtype = getattr(torch, dt)
@@ -1282,10 +1340,15 @@ def check_flash(results):
                                       device="cuda")
             pairs = int(mask.sum()) * B * hq
             esz = q.element_size()
-            b_ms, b_by = bound_ms(
-                esz * (2 * B * sq * hq + 2 * B * sk * hkv) * dh,
-                4 * dh * pairs,
-                BF16_OPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S)
+            n_bytes = esz * (2 * B * sq * hq + 2 * B * sk * hkv) * dh
+            if dtype == torch.bfloat16:
+                b_ms, b_by = bound_ms(n_bytes, 4 * dh * pairs,
+                                      BF16_OPS_PER_S)
+            else:
+                b_ms, b_by = bound_ms(n_bytes, 12 * dh * pairs,
+                                      TF32_OPS_PER_S)
+            core_ms = bound_ms(n_bytes, 4 * dh * pairs)[0]
+            exp_ms = pairs / EXP_PER_S * 1e3
             ms = cuda_ms(lambda: ops.mha(q, k, v, **kw), reps)
             plain_ms = cuda_ms(lambda: plain(q, k, v, **kw),
                                max(2, reps // 5))
@@ -1297,13 +1360,17 @@ def check_flash(results):
             dtype=dt, pairs=pairs, max_abs_err=err, tol=[rtol, atol],
             err_over_tol=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib,
-            tflops=4 * dh * pairs / ms / 1e9)
+            cuda_core_bound_ms=None if dtype == torch.bfloat16 else core_ms,
+            exp_bound_ms=exp_ms, tflops=4 * dh * pairs / ms / 1e9)
         say(f"  flash {label} {[B, sq, sk, hq, hkv, dh]} causal={causal} "
             f"window={window} {dt}: max err {err:.2e}, {worst:.3f} of the "
             f"limit {atol:g} + {rtol:g}|plain|; kernel {ms:.3f} ms "
             f"({4 * dh * pairs / ms / 1e9:.2f} TFLOP/s), plain "
             f"{plain_ms:.3f} ms, SDPA {lib:.3f} ms, bound {b_ms:.4f} ms "
-            f"({b_by})")
+            f"({b_by}"
+            + ("" if dtype == torch.bfloat16 else
+               f"; f32 CUDA-core bound {core_ms:.4f} ms")
+            + f"; exp bound {exp_ms:.4f} ms)")
 
 
 def _profile_serve(fn) -> dict:

@@ -8,11 +8,14 @@ an Sk-long sequence.  For a tensor on the CPU it runs the plain
 ``flash_mha_kernel`` of the reference package) or raises — it never falls
 back.  ``mha.launches`` counts kernel launches.
 
-The kernel indexes the KV head of query head h as ``h // (Hq // Hkv)``
-instead of repeating K/V, masks the ragged edges instead of padding, and
-skips key tiles that the causal and window masks hide entirely (such a
-tile leaves the running max, sum and output unchanged in the online
-softmax, so skipping it is exact).
+The kernel runs both products on the tensor cores (wgmma for bfloat16
+inputs; 3xTF32 ``mma.sync`` for float32, which keeps float32 accuracy
+whatever ``torch.backends.cuda.matmul.allow_tf32`` says), indexes the KV
+head of query head h as ``h // (Hq // Hkv)`` instead of repeating K/V,
+masks the ragged edges instead of padding, and skips key tiles that the
+causal and window masks hide entirely (such a tile leaves the running
+max, sum and output unchanged in the online softmax, so skipping it is
+exact).
 """
 from __future__ import annotations
 
@@ -37,8 +40,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``backend="plain"`` forces the plain version on any device (the card
     tests compare the two with it; no path of the port passes it).
     ``block_q``/``block_k`` are the reference's tile knobs, accepted for
-    its signature: the CUDA kernel's tile is fixed at 64 x 64 and its
-    result does not depend on the tiling beyond float rounding.
+    its signature: the CUDA kernel's tile is fixed at 128 query rows by
+    64 keys and its result does not depend on the tiling beyond float
+    rounding.
     """
     if backend not in ("kernel", "plain"):
         raise ValueError(f"unknown backend {backend!r}")

@@ -286,6 +286,15 @@ def _flash_inputs(shape_q, shape_kv, dtype, seed, cuda):
     (2, 1, 96, 4, 4, 32, None),          # decode
     (2, 64, 64, 4, 2, 32, 16),           # window inside a tile
     (1, 8, 8, 2, 2, 16, 0),              # every row fully masked
+    # the kernel's tile edges: a CTA takes 128 query rows, a key tile is
+    # 64 keys, the K/V ring has two stages of one tile each
+    (1, 127, 127, 4, 2, 64, None),       # one less than 128 and 2 x 64
+    (1, 129, 129, 4, 2, 64, None),       # one more than 128 and 2 x 64
+    (1, 255, 319, 4, 1, 32, None),       # one less than 2 x 128 and 5 x 64
+    (1, 257, 321, 4, 1, 32, None),       # one more than 2 x 128 and 5 x 64
+    (1, 300, 300, 4, 2, 64, 100),        # window edge inside a ring stage
+    (2, 300, 300, 8, 2, 128, 150),       # dh = 128 at B = 2
+    (2, 300, 300, 8, 2, 120, None),      # dh = 120 at B = 2
 ])
 def test_flash_kernel_matches_plain(cuda, B, sq, sk, hq, hkv, dh, window,
                                     causal, dtype):
