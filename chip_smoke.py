@@ -9,11 +9,19 @@ these phases, each printing one line with its result and seconds:
 1. the card's name and power limit (``nvidia-smi``), then the kernel build;
 2. the thermal-stencil kernel against its plain PyTorch version on the
    card, at the main path's shape (6 cases x 7 layers x 36 x 36) and at the
-   256^2 solver grid with margin (7 x 384 x 384): bit for bit, timed with
-   CUDA events beside the least time the card could take;
-3. the AP pass-schedule kernel against its plain version, bit for bit, at
-   the dmm trace shape (402 bit columns x 32 lanes) and at the paper's full
-   AP of 2^20 words (32768 lanes), both with a real multiply schedule;
+   256^2 solver grid with margin (7 x 384 x 384), its seven fields as one
+   pack: bit for bit, timed with CUDA events (a call, launch path
+   included) beside the least time the card could take;
+3. the AP pass-schedule kernel: first a shared-memory latency probe on
+   the card (load to use, one dependent logic op, load -> op -> store ->
+   load, the SM clock), then the kernel against its plain version, bit for
+   bit on both of its paths (shared memory, and device memory), at the dmm
+   trace shape (402 bit columns x 32 lanes) and at the paper's full AP of
+   2^20 words (32768 lanes), both with a real multiply schedule, timed
+   beside its latency bound (``ap_match.cu``'s note, from the probe) and
+   its byte bound; then shapes that stress the design (``AP_STRESS``:
+   rows past one shared-memory tile, lanes not a multiple of 32, no pass,
+   more passes than one table chunk, a narrow column range of wide rows);
 4. the AP trace capture of dmm (1024 elements) and of fft and bs (256) on
    the card and on the host CPU: counters and trace events identical;
 5. the main path, ``run_stack_cosim(("dmm", "fft", "bs"), n_dram=2,
@@ -331,7 +339,8 @@ def _stencil_case(shape, seed):
     # void faces, as the margin ring of a real grid has
     for k in ("gx_lf", "gy_up"):
         F[k][..., :2, :] = 0.0
-    return T.cuda(), {k: v.cuda() for k, v in F.items()}
+    # one pack of the seven fields, as thermal.Grid.fields builds it
+    return T.cuda(), ops.pack_fields({k: v.cuda() for k, v in F.items()})
 
 
 @phase("2 stencil kernel vs plain")
@@ -372,12 +381,68 @@ def _mul_schedule_tables(a0: int, b0: int, prod0: int, prod_w: int,
     return bucket_schedule(sched), sched
 
 
+def _ap_latency_bound_ms(probe: dict, P: int, kc: int,
+                         n_bytes: float) -> float:
+    """The AP kernel's latency bound (``ap_match.cu``'s note): P passes of
+    one dependent chain each, a shared-memory read-modify-write and the
+    XNOR/AND tree of Kc terms, at the measured cycles and SM clock, plus
+    the bytes at the HBM rate."""
+    import math
+    chain = probe["rmw_cycles"] \
+        + (1 + math.ceil(math.log2(max(kc, 1)))) * probe["alu_cycles"]
+    return P * chain / (probe["sm_ghz"] * 1e9) * 1e3 \
+        + n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def _ap_random_tables(rng, n_bits: int, P: int, kc: int, kw: int,
+                      lo: int = 0):
+    """A random schedule over columns [lo, n_bits) as host int32 tables:
+    a write column compared in its own pass and in the next, a column
+    written twice in a pass, and repeated entries."""
+    import numpy as np
+    cc = rng.integers(lo, n_bits, (P, kc))
+    wc = rng.integers(lo, n_bits, (P, kw))
+    if P > 1 and kc > 1:
+        cc[1:, -1] = wc[:-1, 0]
+        cc[:, 0] = wc[:, -1]
+    if kw > 1:
+        wc[::3, 1] = wc[::3, 0]
+    ck = rng.integers(0, 2, (P, kc))
+    wk = rng.integers(0, 2, (P, kw))
+    return [np.ascontiguousarray(t, np.int32) for t in (cc, ck, wc, wk)]
+
+
+#: shapes that stress the AP kernel's design, each as (n_bits, n_lanes,
+#: P, Kc, Kw, least column): rows past one shared-memory tile (the
+#: device-memory path), lanes not a multiple of 32, no pass, more passes
+#: than one table chunk (1024), and wide rows with a narrow column range
+AP_STRESS = {"tile_past_smem": (2000, 33, 64, 4, 2, 0),
+             "lanes_1000": (40, 1000, 256, 4, 2, 0),
+             "no_pass": (16, 64, 0, 4, 2, 0),
+             "passes_2500": (30, 5, 2500, 3, 3, 0),
+             "narrow_range": (2000, 33, 64, 4, 2, 1990)}
+
+
+def _random_planes(n_bits: int, n_lanes: int, seed: int):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        -2 ** 31, 2 ** 31, (n_bits, n_lanes), dtype=np.int64)
+        .astype(np.int32)).cuda()
+
+
 @phase("3 AP kernel vs plain")
 def check_ap(results):
     import numpy as np
     import torch
-    from repro_torch.core.engine import schedule_tensors
+    from repro_torch.core.engine import schedule_col_range, schedule_tensors
     from repro_torch.kernels.ap_match import ops
+    probe = ops.latency_probe("cuda")
+    results["ap_probe"] = probe
+    say(f"  shared-memory probe (one thread): load to use "
+        f"{probe['load_cycles']:.1f} cycles, dependent logic op "
+        f"{probe['alu_cycles']:.2f}, load -> op -> store -> load "
+        f"{probe['rmw_cycles']:.1f}; SM clock {probe['sm_ghz']:.3f} GHz")
     # dmm trace shape: 32x32 operands, m=6 -> 402 bit columns, 32 lanes;
     # a_0 at column 0, b_0 at 192, the 17-bit accumulator at 384, carry 401
     cases = (("main", 402, 32, (0, 192, 384, 17, 401), 200),
@@ -385,33 +450,64 @@ def check_ap(results):
     for label, n_bits, n_lanes, layout, reps in cases:
         tables, sched = _mul_schedule_tables(*layout)
         tabs = schedule_tensors(*tables, "cuda")
-        rng = np.random.default_rng(n_bits + n_lanes)
-        planes = torch.from_numpy(rng.integers(
-            -2 ** 31, 2 ** 31, (n_bits, n_lanes), dtype=np.int64)
-            .astype(np.int32)).cuda()
-        got, m = ops.run_schedule(planes, *tabs)
-        want, m_plain = ops.run_schedule_plain(planes, *tabs)
-        torch.cuda.synchronize()
-        err = max(int((got.long() - want.long()).abs().max()),
-                  int((m.long() - m_plain.long()).abs().max()))
-        check(err == 0, f"AP kernel differs from plain at {n_bits}x"
-              f"{n_lanes}: planes or matched counts")
+        col_range = schedule_col_range(tables[0], tables[2])
+        planes = _random_planes(n_bits, n_lanes, n_bits + n_lanes)
         P, kc = tables[0].shape
         kw = tables[2].shape[1]
+        path = ops.kernel_path(n_lanes, col_range, P, kc, kw)
+        want, m_plain = ops.run_schedule_plain(planes, *tabs)
+        err = 0
+        for p in (None, "global"):
+            got, m = ops.run_schedule(planes, *tabs, col_range=col_range,
+                                      path=p)
+            torch.cuda.synchronize()
+            err = max(err, int((got.long() - want.long()).abs().max()),
+                      int((m.long() - m_plain.long()).abs().max()))
+        check(err == 0, f"AP kernel differs from plain at {n_bits}x"
+              f"{n_lanes}: planes or matched counts")
         n_bytes = 2 * planes.numel() * 4 + 4 * P * (2 * kc + 2 * kw) + 4 * P
         n_ops = P * n_lanes * (3 * kc + 3 * kw + 2)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        ms = cuda_ms(lambda: ops.run_schedule(planes, *tabs), reps)
+        lat_ms = _ap_latency_bound_ms(probe, P, kc, n_bytes)
+        ms = cuda_ms(lambda: ops.run_schedule(planes, *tabs,
+                                              col_range=col_range), reps)
+        global_ms = cuda_ms(lambda: ops.run_schedule(
+            planes, *tabs, col_range=col_range, path="global"), reps)
         plain = cuda_ms(lambda: ops.run_schedule_plain(planes, *tabs),
                         max(reps // 20, 2))
         results[f"ap_{label}"] = dict(
             n_bits=n_bits, n_lanes=n_lanes, passes=P, true_passes=
-            sched.n_passes, kc=kc, kw=kw, max_abs_err=err, ms=ms,
-            plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            sched.n_passes, kc=kc, kw=kw, path=path, max_abs_err=err,
+            ms=ms, global_path_ms=global_ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, latency_bound_ms=lat_ms, library_ms=None)
         say(f"  run_schedule {n_bits}x{n_lanes} lanes, {P} passes "
-            f"(Kc={kc}, Kw={kw}): bit-identical; kernel {ms * 1e3:.2f} us, "
-            f"plain {plain * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
-            f"({b_by})")
+            f"(Kc={kc}, Kw={kw}), {path} path: bit-identical on both "
+            f"paths; kernel {ms * 1e3:.2f} us (device-memory path "
+            f"{global_ms * 1e3:.2f} us), plain {plain * 1e3:.2f} us; "
+            f"latency bound {lat_ms * 1e3:.2f} us, byte bound "
+            f"{b_ms * 1e3:.2f} us ({b_by})")
+    for label, (n_bits, n_lanes, P, kc, kw, lo) in AP_STRESS.items():
+        rng = np.random.default_rng(n_bits + n_lanes + P)
+        tables = _ap_random_tables(rng, n_bits, P, kc, kw, lo)
+        tabs = schedule_tensors(*tables, "cuda")
+        planes = _random_planes(n_bits, n_lanes, P + 1)
+        want, m_plain = ops.run_schedule_plain(planes, *tabs)
+        col_range = schedule_col_range(tables[0], tables[2]) if P else None
+        path = ops.kernel_path(n_lanes, col_range, P, kc, kw) if P else \
+            "no launch"
+        for p in (None, "global"):
+            got, m = ops.run_schedule(planes, *tabs, col_range=col_range,
+                                      path=p)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and torch.equal(m, m_plain),
+                  f"AP kernel differs from plain at {label} ({n_bits}x"
+                  f"{n_lanes}, P={P}, Kc={kc}, Kw={kw}, path {p})")
+        results[f"ap_stress_{label}"] = dict(
+            n_bits=n_bits, n_lanes=n_lanes, passes=P, kc=kc, kw=kw,
+            col_range=col_range, path=path)
+        say(f"  {label}: {n_bits}x{n_lanes}, P={P}, Kc={kc}, Kw={kw}, "
+            f"columns {col_range}: {path} path, bit-identical on both "
+            f"paths")
 
 
 def _same_counters(a: dict, b: dict) -> bool:
@@ -663,9 +759,7 @@ def _replay_window(solver: str, n_win: int = 4) -> dict:
 
 @phase("6 profile")
 def profile(results):
-    import numpy as np
-    import torch
-    from repro_torch.core.engine import schedule_tensors
+    from repro_torch.core.engine import schedule_col_range, schedule_tensors
     from repro_torch.kernels.ap_match import ops as ap_ops
     from repro_torch.kernels.ap_megakernel import ops as mk_ops
     from repro_torch.kernels.mg_smooth import ops as mg_ops
@@ -683,18 +777,18 @@ def profile(results):
             ("large", 32, 32768, (0, 6, 12, 13, 25), 10)):
         tables, _ = _mul_schedule_tables(*layout)
         tabs = schedule_tensors(*tables, "cuda")
-        planes = torch.from_numpy(np.random.default_rng(0).integers(
-            -2 ** 31, 2 ** 31, (n_bits, n_lanes), dtype=np.int64)
-            .astype(np.int32)).cuda()
+        cr = schedule_col_range(tables[0], tables[2])
+        planes = _random_planes(n_bits, n_lanes, 0)
         jobs.append((f"ap_{label}", "run_schedule", n,
-                     lambda p=planes, t=tabs: ap_ops.run_schedule(p, *t)))
+                     lambda p=planes, t=tabs, cr=cr:
+                     ap_ops.run_schedule(p, *t, col_range=cr)))
     for label, (T, b, F, d) in _smooth_cases().items():
         jobs.append((f"smooth_{label}", "rb_line_sweep", 50,
                      lambda T=T, b=b, F=F, d=d:
                      mg_ops.rb_line_sweep(T, b, F, d, 0)))
     T, vecs = _uniform_case()
     jobs.append(("uniform_large", "stencil_uniform", 20,
-                 lambda: st_ops.apply_operator(T, *vecs)))
+                 lambda: st_ops.apply_operator_vectors(T, *vecs)))
     mk_cases = _megakernel_cases()
     for label, name in (("sort_round_32768", "group_solo"),
                         ("mul_pass_32768", "group_tiled")):
@@ -818,7 +912,7 @@ def check_uniform(results):
     import torch
     from repro_torch.kernels.thermal_stencil import ops
     T, vecs = _uniform_case()
-    got = ops.apply_operator(T, *vecs)
+    got = ops.apply_operator_vectors(T, *vecs)
     want = ops.apply_operator_plain(T, *vecs)
     torch.cuda.synchronize()
     check(torch.isfinite(got).all().item(), "uniform stencil not finite")
@@ -827,7 +921,7 @@ def check_uniform(results):
           f"plain at {tuple(T.shape)}: max |diff| = {err}")
     cells, L = T.numel(), T.shape[0]
     b_ms, b_by = bound_ms(8.0 * cells + 16.0 * L, 12.0 * cells)
-    ms = cuda_ms(lambda: ops.apply_operator(T, *vecs), 200)
+    ms = cuda_ms(lambda: ops.apply_operator_vectors(T, *vecs), 200)
     plain = cuda_ms(lambda: ops.apply_operator_plain(T, *vecs), 20)
     results.setdefault("uniform_large", {}).update(
         shape=list(T.shape), max_abs_err=err, ms=ms, plain_ms=plain,
@@ -1617,7 +1711,8 @@ def main() -> int:
         _kernel_row("ap_match.run_schedule",
                     f"{src}/ap_match/csrc/ap_match.cu",
                     f"{ref}/ap_match/kernel.py:66",
-                    launches["ap_match"], results["ap_main"]),
+                    launches["ap_match"], results["ap_main"],
+                    latency_bound_ms=results["ap_main"]["latency_bound_ms"]),
         _kernel_row("mg_smooth.rb_line_sweep",
                     f"{src}/mg_smooth/csrc/mg_smooth.cu",
                     f"{ref}/mg_smooth/kernel.py:76",

@@ -5,10 +5,16 @@ The package mirrors the reference package ``repro`` module for module
 keeps its own copy of everything it needs: it imports ``torch`` and
 NumPy, never ``jax`` and never ``repro``.
 
-Every entry point takes an explicit ``device`` and defaults to
+Every entry point takes the reference's parameters in the reference's
+positions, and an explicit keyword-only ``device`` that defaults to
 ``"cuda"``.  Without a card such a call raises; only an explicit
 ``device="cpu"`` runs on the host, where each hand-written kernel's
-wrapper takes its plain PyTorch version instead.
+wrapper takes its plain PyTorch version instead.  The reference's kernel
+switches are accepted and change nothing, since the tensor's device picks
+each kernel: ``use_pallas`` is ignored, every ``backend`` name of
+``APEngine.BACKENDS`` runs bit-identical passes, and the kernel wrappers
+ignore the Pallas options ``block_y``, ``block_lanes``, ``interpret``,
+``backend`` and ``mesh``.
 """
 from __future__ import annotations
 

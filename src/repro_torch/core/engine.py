@@ -25,12 +25,14 @@ device programs of ``workloads/_device.py`` keep a data-dependent inner
 loop on the device: per-pass matched counts and the packed counters stay
 there and cross to the host once per workload phase.
 
-Port note: the device is chosen by ``device``; ``backend`` only picks
-which kernel :meth:`APEngine.run` executes a schedule with — the pass
-schedule kernel (``"ap_match"``, the reference's ``jnp``/``pallas``) or
-the op-group megakernel (``"megakernel"``, the reference's
-``megakernel``/``megakernel_pallas``).  Lane sharding (``n_shards``) is
-not ported.
+Port note: the device is chosen by the keyword-only ``device``;
+``backend`` takes the reference's names (:attr:`APEngine.BACKENDS`) and
+only picks which kernel :meth:`APEngine.run` executes a schedule with —
+the pass-schedule kernel ``kernels/ap_match`` for ``"jnp"`` and
+``"pallas"``, the op-group megakernel for ``"megakernel"`` and
+``"megakernel_pallas"``.  On a card each is the hand-written kernel, on
+the CPU its plain version; every path is bit-identical.  Lane sharding
+(``n_shards``) is not ported.
 """
 from __future__ import annotations
 
@@ -297,19 +299,32 @@ def bucket_schedule(sched: "PassSchedule"
 
 def schedule_tensors(cc, ck, wc, wk, device) -> tuple[torch.Tensor, ...]:
     """Host schedule tables -> int32 tensors on ``device`` (uint32 keys
-    keep their bits)."""
-    return tuple(torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
-                 .to(device) for a in (cc, ck, wc, wk))
+    keep their bits).  The four tables cross in one copy: they are views
+    of one packed buffer."""
+    tabs = [np.ascontiguousarray(a).view(np.int32) for a in (cc, ck, wc, wk)]
+    packed = torch.from_numpy(np.concatenate([t.ravel() for t in tabs]))
+    packed = packed.to(device)
+    out, at = [], 0
+    for t in tabs:
+        out.append(packed[at:at + t.size].view(t.shape))
+        at += t.size
+    return tuple(out)
+
+
+def schedule_col_range(cc, wc) -> tuple[int, int]:
+    """(least, greatest) column a host schedule's compare and write
+    tables name: what ``ap_match.run_schedule`` takes as ``col_range``."""
+    return (int(min(cc.min(), wc.min())), int(max(cc.max(), wc.max())))
 
 
 class APEngine:
     """One Associative Processing array: n_words PUs x n_bits columns."""
 
-    BACKENDS = ("ap_match", "megakernel")
+    BACKENDS = ("jnp", "pallas", "megakernel", "megakernel_pallas")
 
     def __init__(self, n_words: int, n_bits: int = 256,
                  power: PowerParams = PAPER_POWER, collect_stats: bool = True,
-                 backend: str = "ap_match", n_shards: int | None = None,
+                 backend: str = "jnp", n_shards: int | None = None, *,
                  device: str | torch.device = "cuda"):
         if backend not in self.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one "
@@ -527,23 +542,27 @@ class APEngine:
 
     # ------------------------------------------------------ fused schedules
     def run(self, sched: PassSchedule) -> None:
-        """Execute a static pass schedule through ``kernels/ap_match``,
-        or as an all-PASS op group through ``kernels/ap_megakernel`` when
-        the engine's backend is ``"megakernel"``.
+        """Execute a static pass schedule through ``kernels/ap_match``
+        (backends ``"jnp"``, ``"pallas"``), or as an all-PASS op group
+        through ``kernels/ap_megakernel`` (``"megakernel"``,
+        ``"megakernel_pallas"``).
 
         The schedule shape is padded to the reference's power-of-two
         bucket (:func:`bucket_schedule`); the padded no-op passes'
-        matched counts are sliced off before accounting.  The counts
-        cross to the host once per call.
+        matched counts are sliced off before accounting.  The tables
+        cross to the device in one copy with their column range known
+        from the host, so the launch reads nothing back; the counts cross
+        to the host once per call.
         """
         P = sched.n_passes
         tables = bucket_schedule(sched)
-        if self.backend == "megakernel":
+        if self.backend in ("megakernel", "megakernel_pallas"):
             self.planes, self.tag, matched = mk_ops.run_group(
                 self.planes, self.tag, OpGroup.from_schedule(*tables))
         else:
             self.planes, matched = ap_ops.run_schedule(
-                self.planes, *schedule_tensors(*tables, self.device))
+                self.planes, *schedule_tensors(*tables, self.device),
+                col_range=schedule_col_range(tables[0], tables[2]))
         self.charge_run(sched, matched[:P].cpu().numpy())
 
     # -------------------------------------------------- functional bridge

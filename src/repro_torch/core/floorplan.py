@@ -20,9 +20,10 @@ proportion to area (eq 14's decomposition).
 
 Port note: this is the PyTorch port's own copy of the reference module,
 whole.  ``ap_block_zoom`` and ``thermal_comparison`` (the paper's §4
-experiment) run the port's steady-state solver and take ``device``
-(default ``"cuda"``) in place of the reference's ``use_pallas``; their
-results are host NumPy, as in the reference.
+experiment) run the port's steady-state solver and take the
+keyword-only ``device`` (default ``"cuda"``); ``thermal_comparison``
+accepts the reference's ``use_pallas`` and ignores it.  Their results
+are host NumPy, as in the reference.
 """
 from __future__ import annotations
 
@@ -182,7 +183,7 @@ class SIMDFloorplan:
 # ---------------------------------------------------------------------------
 
 def ap_block_zoom(fp: APFloorplan, p_layer_W: float, grid_n: int = 64,
-                  stack=None, device="cuda") -> dict:
+                  stack=None, *, device="cuda") -> dict:
     """Thermal map of one AP block near the die center (Fig 10(c)).
 
     Symmetry argument: a block surrounded by identical blocks sees
@@ -261,8 +262,8 @@ def t_cut(T: np.ndarray) -> np.ndarray:
 
 
 def thermal_comparison(grid_ap: int = 64, grid_simd: int = 64,
-                       workload: str = "dmm", device="cuda",
-                       stack=None) -> dict:
+                       workload: str = "dmm", use_pallas: bool = False,
+                       stack=None, *, device="cuda") -> dict:
     """Run the full §4 experiment: same-performance AP vs SIMD, 4-layer
     stacks by default; pass a heterogeneous ``StackSpec`` (e.g.
     ``repro_torch.stack.spec.dram_on_logic``) to put unpowered DRAM dies

@@ -34,8 +34,10 @@ Where the port differs from the reference:
   the closed-loop replay batches its cases where the reference vmaps.
   Coarsening, restriction and prolongation act on the last three dims
   only, so cases never mix.
-- There is no ``use_pallas`` argument: the tensor's device picks the
-  smoother kernel or its plain version.
+- ``use_pallas`` is accepted and ignored: the tensor's device picks the
+  smoother kernel or its plain version.  ``v_cycle``'s ``sweep_fn`` and
+  ``prolong_fn`` and ``iterate_fixed``'s ``sweep_fn`` hooks are kept,
+  with :func:`rb_line_sweep` and :func:`prolong` as their defaults.
 - The coarsest matrix is assembled once per hierarchy with the plain
   stencil (``apply_operator_fields_plain`` on an identity batch, the
   fields broadcast over it), then factored with
@@ -131,17 +133,19 @@ def build_levels(F: dict, d_extra, min_n: int = MIN_COARSE_N) -> list:
     Every level is the rescaled Galerkin coarsening of the one above.
     Coarsening stops when either in-plane dimension goes odd or drops
     below ``min_n``.  ``d_extra`` (scalar or tensor) is expanded to the
-    fields' shape, so every level carries full contiguous tensors.
+    fields' shape, so every level carries full contiguous tensors; each
+    level's fields are one ``FieldPack``, checked once here.
     """
     g = F["g_pkg"]
     d_extra = torch.as_tensor(d_extra, dtype=g.dtype, device=g.device)
     d_extra = d_extra.expand(g.shape).contiguous()
-    levels = [(F, d_extra)]
+    levels = [(stencil_ops.pack_fields(F), d_extra)]
     while True:
         ny, nx = levels[-1][0]["g_pkg"].shape[-2:]
         if ny % 2 or nx % 2 or min(ny, nx) // 2 < min_n:
             return levels
-        levels.append(coarsen(*levels[-1], rescale_lateral=True))
+        Fc, dc = coarsen(*levels[-1], rescale_lateral=True)
+        levels.append((stencil_ops.pack_fields(Fc), dc))
 
 
 # ---------------------------------------------------------------------------
@@ -152,9 +156,9 @@ line_solve = smooth_ops.line_solve
 rb_line_sweep = smooth_ops.rb_line_sweep
 
 
-def _smooth(T, b, F, d_extra, colors):
+def _smooth(T, b, F, d_extra, colors, sweep_fn):
     for c in colors:
-        T = rb_line_sweep(T, b, F, d_extra, c)
+        T = sweep_fn(T, b, F, d_extra, c)
     return T
 
 
@@ -209,17 +213,16 @@ def coarse_solve_fn(levels: list):
 
 
 def v_cycle(levels: list, b: torch.Tensor, nu1: int = 1, nu2: int = 1,
-            lvl: int = 0, coarse_solve=None) -> torch.Tensor:
+            lvl: int = 0, sweep_fn=rb_line_sweep, prolong_fn=prolong,
+            coarse_solve=None) -> torch.Tensor:
     """One V(nu1, nu2) cycle for ``A e = b`` from a zero initial guess.
 
     Pre-smoothing sweeps red->black, post-smoothing black->red, and the
     coarsest level is solved exactly (``coarse_solve``; a palindromic
-    block of line sweeps when None), so with injection prolongation the
-    cycle is symmetric positive definite — a valid CG preconditioner.
-    Every half-sweep is :func:`rb_line_sweep`, so the tensor's device
-    picks the smoother kernel or its plain version (the reference's
-    ``sweep_fn``/``prolong_fn`` hooks, which carried ``use_pallas``, are
-    not ported).
+    block of line sweeps when None), so with the default injection
+    prolongation the cycle is symmetric positive definite — a valid CG
+    preconditioner.  The default half-sweep :func:`rb_line_sweep` lets
+    the tensor's device pick the smoother kernel or its plain version.
     """
     F, d_extra = levels[lvl]
     T = torch.zeros_like(b)
@@ -227,17 +230,18 @@ def v_cycle(levels: list, b: torch.Tensor, nu1: int = 1, nu2: int = 1,
         if coarse_solve is not None:
             return coarse_solve(b)
         for _ in range(N_COARSE_SWEEPS):
-            T = _smooth(T, b, F, d_extra, (0, 1))
+            T = _smooth(T, b, F, d_extra, (0, 1), sweep_fn)
         for _ in range(N_COARSE_SWEEPS):
-            T = _smooth(T, b, F, d_extra, (1, 0))
+            T = _smooth(T, b, F, d_extra, (1, 0), sweep_fn)
         return T
     for _ in range(nu1):
-        T = _smooth(T, b, F, d_extra, (0, 1))
+        T = _smooth(T, b, F, d_extra, (0, 1), sweep_fn)
     r = b - operator(T, F, d_extra)
-    e = v_cycle(levels, restrict(r), nu1, nu2, lvl + 1, coarse_solve)
-    T = T + prolong(e)
+    e = v_cycle(levels, restrict(r), nu1, nu2, lvl + 1, sweep_fn,
+                prolong_fn, coarse_solve)
+    T = T + prolong_fn(e)
     for _ in range(nu2):
-        T = _smooth(T, b, F, d_extra, (1, 0))
+        T = _smooth(T, b, F, d_extra, (1, 0), sweep_fn)
     return T
 
 
@@ -246,7 +250,8 @@ def v_cycle(levels: list, b: torch.Tensor, nu1: int = 1, nu2: int = 1,
 # ---------------------------------------------------------------------------
 
 def mg_solve_fields(b: torch.Tensor, F: dict, d_extra=0.0, tol: float = 1e-8,
-                    max_cycles: int = 200, nu1: int = 1, nu2: int = 1):
+                    max_cycles: int = 200, nu1: int = 1, nu2: int = 1,
+                    use_pallas: bool = False):
     """Stand-alone V-cycle iteration:  x += V(b - A x)  until the
     residual drops below ``tol * ||b||`` or stops contracting (less than
     10% reduction over a cycle: the float32 residual floor), or turns
@@ -270,7 +275,7 @@ def mg_solve_fields(b: torch.Tensor, F: dict, d_extra=0.0, tol: float = 1e-8,
 
 
 def iterate_fixed(levels: list, b: torch.Tensor, n_cycles: int,
-                  nu1: int = 1, nu2: int = 1,
+                  nu1: int = 1, nu2: int = 1, sweep_fn=rb_line_sweep,
                   coarse_solve=None) -> torch.Tensor:
     """Fixed-cycle-count V-cycle iteration on a pre-built hierarchy:
     uniform cost per call and no host sync — the MG counterpart of
@@ -279,23 +284,25 @@ def iterate_fixed(levels: list, b: torch.Tensor, n_cycles: int,
     Fd, dd = levels[0]
     x, r = torch.zeros_like(b), b
     for _ in range(n_cycles):
-        e = v_cycle(levels, r, nu1, nu2, coarse_solve=coarse_solve)
+        e = v_cycle(levels, r, nu1, nu2, sweep_fn=sweep_fn,
+                    coarse_solve=coarse_solve)
         x = x + e
         r = r - operator(e, Fd, dd)
     return x
 
 
 def mg_fixed(b: torch.Tensor, F: dict, d_extra=0.0, n_cycles: int = 3,
-             nu1: int = 1, nu2: int = 1) -> torch.Tensor:
+             nu1: int = 1, nu2: int = 1,
+             use_pallas: bool = False) -> torch.Tensor:
     """Convenience wrapper over :func:`iterate_fixed`."""
     levels = build_levels(F, d_extra)
     return iterate_fixed(levels, b, n_cycles, nu1, nu2,
-                         coarse_solve_fn(levels))
+                         coarse_solve=coarse_solve_fn(levels))
 
 
 def mgcg_solve_fields(b: torch.Tensor, F: dict, d_extra=0.0,
                       tol: float = 1e-8, max_iter: int = 500, nu1: int = 1,
-                      nu2: int = 1):
+                      nu2: int = 1, use_pallas: bool = False):
     """V-cycle-preconditioned CG (the symmetric cycle is SPD, so plain
     PCG theory applies).  Returns ``(x, n_iterations)``."""
     from repro_torch.core.thermal import pcg

@@ -20,9 +20,9 @@ guarded ``fallback_chain``); the explicit ``transient``; the implicit
 
 Where the port differs from the reference:
 
-- Entry points take ``device`` (default ``"cuda"``) in place of
-  ``use_pallas``: the tensor's device picks each kernel or its plain
-  version.
+- Entry points take the keyword-only ``device`` (default ``"cuda"``).
+  They accept the reference's ``use_pallas`` in its place and ignore
+  it: the tensor's device picks each kernel or its plain version.
 - ``pcg_fixed`` and ``implicit_lhs_solver`` treat the first dim as a
   case batch (the reference's ``vmap`` written out); the unbatched
   steppers add a batch of one.  ``lax.scan``/``while_loop`` are Python
@@ -167,11 +167,13 @@ class Grid:
         (faces outside it are zero = adiabatic); the spreader layer spans
         the full domain.  Returns seven [L, NY, NX] tensors: gx_lf, gx_rt,
         gy_up, gy_dn (lateral faces), gz_up, gz_dn (interfaces), g_pkg
-        (bottom lump).
+        (bottom lump), as one :class:`~repro_torch.kernels.thermal_stencil.
+        ops.FieldPack` (seven views of one contiguous tensor).
         """
         dev = resolve_device(device)
-        return {k: torch.from_numpy(v).to(dev)
-                for k, v in self.fields_numpy().items()}
+        F = self.fields_numpy()
+        return stencil_ops.FieldPack(torch.from_numpy(
+            np.stack([F[k] for k in stencil_ops.FIELD_KEYS])).to(dev))
 
     def capacities(self) -> np.ndarray:
         """Per-layer per-cell heat capacity [J/K], float32 [L]."""
@@ -209,20 +211,8 @@ class Grid:
 # legacy uniform-per-layer stencil (kernels/thermal_stencil, second kernel)
 # ---------------------------------------------------------------------------
 
-def _vectors(L: int, g_lat, g_vert, g_pkg, device="cpu"):
-    """Normalize scalar-or-vector conductances to the four float32 [L]
-    per-layer vectors of the uniform stencil, on ``device``."""
-    as32 = lambda x: torch.as_tensor(np.asarray(x, np.float32)
-                                     if not torch.is_tensor(x) else x,
-                                     dtype=torch.float32, device=device)
-    g_lat = as32(g_lat).expand(L).contiguous()
-    g_vert = as32(g_vert).expand(max(L - 1, 1))[: L - 1]
-    zero = torch.zeros(1, dtype=torch.float32, device=device)
-    gv_u = torch.cat([zero, g_vert])
-    gv_d = torch.cat([g_vert, zero])
-    g_pkg_vec = torch.zeros(L, dtype=torch.float32, device=device)
-    g_pkg_vec[-1] = float(g_pkg)
-    return g_lat, gv_u, gv_d, g_pkg_vec
+#: scalar-or-vector conductances -> the uniform stencil's four [L] vectors
+_vectors = stencil_ops.vectors
 
 
 def apply_operator(T: torch.Tensor, g_lat, g_vert, g_pkg) -> torch.Tensor:
@@ -233,8 +223,7 @@ def apply_operator(T: torch.Tensor, g_lat, g_vert, g_pkg) -> torch.Tensor:
     layer to ambient).  Adiabatic side/top boundaries.  Runs the CUDA
     kernel for a CUDA tensor, the plain version for a CPU one.
     """
-    vecs = _vectors(T.shape[-3], g_lat, g_vert, g_pkg, T.device)
-    return stencil_ops.apply_operator(T, *vecs)
+    return stencil_ops.apply_operator(T, g_lat, g_vert, g_pkg)
 
 
 def _diag(shape, g_lat, g_vert, g_pkg, device="cpu") -> torch.Tensor:
@@ -256,13 +245,11 @@ def _diag(shape, g_lat, g_vert, g_pkg, device="cpu") -> torch.Tensor:
 # heterogeneous (face-conductance-field) operator
 # ---------------------------------------------------------------------------
 
-def apply_operator_fields(T: torch.Tensor, F: dict) -> torch.Tensor:
-    """y = G @ T with per-face conductances (zero faces = adiabatic).
-
-    ``T`` is [L, NY, NX] or a batch [B, L, NY, NX]; runs the CUDA stencil
-    for a CUDA tensor and the plain version for a CPU one.
-    """
-    return stencil_ops.apply_operator_fields(T, F)
+#: y = G @ T with per-face conductances (zero faces = adiabatic), ``T``
+#: [L, NY, NX] or a batch [B, L, NY, NX]: the CUDA stencil for a CUDA
+#: tensor, the plain version for a CPU one (no hop in between: the
+#: replay's PCG calls it some 24k times a run)
+apply_operator_fields = stencil_ops.apply_operator_fields
 
 
 def _diag_fields(F: dict) -> torch.Tensor:
@@ -355,7 +342,7 @@ def _cg_solve(b, diag, g_lat, g_vert, g_pkg, tol=1e-8, max_iter=6000):
     """Jacobi-preconditioned conjugate gradient for the legacy uniform
     operator, G T = b."""
     vecs = _vectors(b.shape[-3], g_lat, g_vert, g_pkg, b.device)
-    A = lambda v: stencil_ops.apply_operator(v, *vecs)
+    A = lambda v: stencil_ops.apply_operator_vectors(v, *vecs)
     return pcg(A, 1.0 / diag, b, tol, max_iter)[0]
 
 
@@ -433,8 +420,9 @@ def _solve_fields_guarded(b, F, solver: str, tol: float = 1e-8):
 
 
 def steady_state_stats(power, grid: Grid, t_amb: float = AMBIENT_C,
-                       device="cuda", solver: str = "pcg",
-                       tol: float = 1e-8) -> tuple[torch.Tensor, dict]:
+                       use_pallas: bool = False, solver: str = "pcg",
+                       tol: float = 1e-8, *, device="cuda"
+                       ) -> tuple[torch.Tensor, dict]:
     """:func:`steady_state` plus solver statistics.
 
     Returns ``(T_die, stats)`` with ``stats = {"iterations", "solver",
@@ -468,14 +456,16 @@ def steady_state_stats(power, grid: Grid, t_amb: float = AMBIENT_C,
 
 
 def steady_state(power, grid: Grid, t_amb: float = AMBIENT_C,
-                 device="cuda", solver: str = "pcg") -> torch.Tensor:
+                 use_pallas: bool = False, solver: str = "pcg", *,
+                 device="cuda") -> torch.Tensor:
     """Steady-state temperatures [C] of the DIE layers over the DIE.
 
     power: [n_die_layers, ny, nx] watts per cell of the die footprint (the
     spreader layer and margin ring are handled internally and stripped).
     ``solver`` selects the linear backend (:data:`SOLVERS`).
     """
-    T, _ = steady_state_stats(power, grid, t_amb, device, solver)
+    T, _ = steady_state_stats(power, grid, t_amb, use_pallas, solver,
+                              device=device)
     return T
 
 
@@ -491,14 +481,15 @@ def transient(T0, power, g_lat, g_vert, g_pkg, cap, dt, n_steps: int,
                            device=T0.device)[:, None, None]
     T, peaks = T0, []
     for _ in range(n_steps):
-        dTdt = (power - stencil_ops.apply_operator(T - t_amb, *vecs)) / cap3
+        dTdt = (power - stencil_ops.apply_operator_vectors(T - t_amb, *vecs)
+                ) / cap3
         peaks.append(T.max())
         T = T + dt * dTdt
     return T, torch.stack(peaks) if peaks else T0.new_zeros(0)
 
 
 def transient_solve(power, grid: Grid, t_end: float,
-                    t_amb: float = AMBIENT_C, device="cuda"):
+                    t_amb: float = AMBIENT_C, *, device="cuda"):
     """Convenience wrapper: start from ambient, integrate to t_end
     seconds with the explicit scheme."""
     g = grid.conductances()
@@ -558,7 +549,8 @@ def _implicit_scan(dT0, power, A, solve, n_steps: int, lhs=None):
 
 
 def implicit_lhs_solver(A, F, cap3, dt, theta, *, solver: str = "pcg",
-                        n_cg: int = 50, n_mg: int = 3):
+                        n_cg: int = 50, n_mg: int = 3,
+                        use_pallas: bool = False):
     """Fixed-cost solve closure for the theta-scheme LHS
     ``(C/dt + theta G) delta = rhs`` over the fields operator, for a case
     batch ``[B, L, NY, NX]``.
@@ -598,7 +590,7 @@ def transient_implicit(T0, power, g_lat, g_vert, g_pkg, cap, dt,
                            if not torch.is_tensor(cap) else cap,
                            dtype=torch.float32, device=dev)
     cap3 = cap3.expand(L)[:, None, None]
-    A = lambda v: stencil_ops.apply_operator(v, *vecs)
+    A = lambda v: stencil_ops.apply_operator_vectors(v, *vecs)
     lhs = lambda v: cap3 / dt * v + theta * A(v)
     Minv = 1.0 / (cap3 / dt + theta * diag)
     # pcg_fixed's dots run per case over the first dim: a batch of one
@@ -615,7 +607,8 @@ def transient_implicit(T0, power, g_lat, g_vert, g_pkg, cap, dt,
 def transient_implicit_fields(T0, power, F: dict, cap3, dt, n_steps: int,
                               theta: float = 1.0, t_amb: float = AMBIENT_C,
                               n_cg: int = 50, solver: str = "pcg",
-                              n_mg: int = 3, with_residuals: bool = False):
+                              n_mg: int = 3, use_pallas: bool = False,
+                              with_residuals: bool = False):
     """Implicit theta-scheme on the heterogeneous (production) operator.
 
     T0/power: [L, NY, NX] over the full (die + margin) domain; cap3 the
@@ -623,8 +616,9 @@ def transient_implicit_fields(T0, power, F: dict, cap3, dt, n_steps: int,
     selects the fixed-cost inner solve: ``n_cg`` PCG iterations or
     ``n_mg`` multigrid V-cycles per step.
     """
+    F = stencil_ops.pack_fields(F)
     A = lambda v: apply_operator_fields(v, F)
-    Fb = {k: v[None] for k, v in F.items()}
+    Fb = stencil_ops.pack_fields({k: v[None] for k, v in F.items()})
     solve_b = implicit_lhs_solver(
         lambda v: apply_operator_fields(v, Fb), Fb, cap3[None], dt, theta,
         solver=solver, n_cg=n_cg, n_mg=n_mg)
@@ -642,7 +636,7 @@ def transient_implicit_fields(T0, power, F: dict, cap3, dt, n_steps: int,
 def transient_solve_implicit(power, grid: Grid, t_end: float,
                              n_steps: int, theta: float = 1.0,
                              t_amb: float = AMBIENT_C, n_cg: int = 50,
-                             solver: str = "pcg", n_mg: int = 3,
+                             solver: str = "pcg", n_mg: int = 3, *,
                              device="cuda"):
     """Implicit counterpart of :func:`transient_solve` with a chosen step
     count.  ``solver="mg"`` runs the multigrid inner solve on the fields

@@ -110,6 +110,21 @@ def load(stem: str) -> ctypes.CDLL:
         return lib
 
 
+_raw_stream = None
+
+
+def stream(device_index: int) -> int:
+    """The raw handle of PyTorch's current stream on card ``device_index``
+    (what a kernel launches on), without building a ``Stream`` object."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+        _raw_stream = getattr(
+            torch._C, "_cuda_getCurrentRawStream",
+            lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(device_index)
+
+
 def check(rc: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error (its cudaGetLastError)."""
     if rc != 0:

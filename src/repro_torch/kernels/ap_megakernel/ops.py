@@ -61,13 +61,18 @@ def device_group(group: OpGroup, device) -> DeviceGroup:
 
 
 def run_group(planes: torch.Tensor, tag: torch.Tensor,
-              group: OpGroup | DeviceGroup, enabled=None
+              group: OpGroup | DeviceGroup, enabled=None, *,
+              backend: str = "jnp", mesh=None, block_lanes: int = 512,
+              interpret: bool = True
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Execute one op group -> (planes', tag', matched int32[P]).
 
     planes : int32[n_bits, n_lanes];  tag : int32[n_lanes]
     enabled: optional bool[P] op mask, NumPy or a tensor (default: all on)
-    The inputs are left unchanged.
+    The inputs are left unchanged.  ``backend``, ``mesh``,
+    ``block_lanes`` and ``interpret`` are the reference's options and are
+    ignored: the planes' device picks the kernel or the plain version,
+    and the lanes are not sharded (the result is the same).
     """
     if planes.device.type == "cpu":
         out_planes, out_tag, matched, _ = ref.group_scan_plain(

@@ -78,12 +78,15 @@ def rb_line_sweep_plain(T: torch.Tensor, b: torch.Tensor, F: dict, d_extra,
 
 
 def rb_line_sweep(T: torch.Tensor, b: torch.Tensor, F: dict, d_extra,
-                  color: int) -> torch.Tensor:
+                  color: int, *, block_y: int = 32,
+                  interpret: bool = True) -> torch.Tensor:
     """One red-black z-line Gauss-Seidel half-sweep, out of place.
 
     ``T`` and ``b`` are [L, NY, NX] or [B, L, NY, NX]; every field of
     ``F`` has T's shape; ``d_extra`` is a scalar or a tensor of T's shape
     (a scalar is expanded, as the reference's wrapper broadcasts it).
+    ``block_y`` and ``interpret`` are the reference's Pallas options and
+    are ignored.
     """
     if color not in (0, 1):
         raise ValueError(f"color must be 0 or 1; got {color!r}")

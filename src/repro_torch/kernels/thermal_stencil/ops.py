@@ -10,12 +10,20 @@ CUDA tensor it launches its hand-written kernel in
 ``csrc/thermal_stencil.cu`` (which replace the TPU kernels
 ``apply_operator_fields_kernel`` and ``apply_operator_kernel`` of the
 reference package) or raises — it never falls back.  Each wrapper's
-``.launches`` counts its kernel launches.
+``.launches`` counts its kernel launches (``apply_operator.launches``
+counts the uniform kernel's, whichever of its two entries launched it).
+
+The seven face fields go to the kernel as one contiguous pack
+``[7, ...]`` (:class:`FieldPack`, made by :func:`pack_fields`).  A pack is
+checked once, where it is built (``thermal.Grid.fields``, the replay's
+case batch, every multigrid level), so a launch on it checks only ``T``;
+a plain dict of seven tensors is packed, and checked, on every call.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -52,33 +60,88 @@ def apply_operator_fields_plain(T: torch.Tensor, F: dict) -> torch.Tensor:
             + F["g_pkg"] * T)
 
 
-def apply_operator_fields(T: torch.Tensor, F: dict) -> torch.Tensor:
-    """y = G T for ``T`` of shape [L, NY, NX] or [B, L, NY, NX]; every
-    field of ``F`` has T's shape, dtype and device."""
-    if T.device.type == "cpu":
-        return apply_operator_fields_plain(T, F)
-    if T.device.type != "cuda":
-        raise ValueError(f"unsupported device {T.device}")
-    if T.dim() not in (3, 4) or T.dtype != torch.float32:
-        raise ValueError(f"T must be float32 [L,NY,NX] or [B,L,NY,NX]; got "
-                         f"{T.dtype} {tuple(T.shape)}")
+class FieldPack(dict):
+    """The seven face fields as views into one contiguous float32 tensor
+    ``data`` of shape ``[7, *shape]`` (``FIELD_KEYS`` order).
+
+    It is the dict of seven tensors every caller reads (``F["gx_lf"]``
+    and so on are views of ``data``, so an in-place change to one shows in
+    the other), checked once when :func:`pack_fields` builds it.  Keys
+    cannot be replaced.
+    """
+
+    def __init__(self, data: torch.Tensor):
+        super().__init__(zip(FIELD_KEYS, data.unbind(0)))
+        self.data = data
+        self.shape = data.shape[1:]
+        self.layers_y_x = tuple(self.shape[-3:])     # L, NY, NX
+        self.device_index = data.get_device()
+
+    def __reduce__(self):    # copies and pickles rebuild the views
+        return FieldPack, (self.data,)
+
+    def _frozen(self, *_):
+        raise TypeError("a FieldPack's fields are views of one tensor; "
+                        "build a new pack with pack_fields")
+
+    __setitem__ = __delitem__ = update = pop = popitem = setdefault = \
+        clear = _frozen
+
+
+def pack_fields(F: dict) -> FieldPack:
+    """``F`` as a :class:`FieldPack` (``F`` itself if it is one).
+
+    Every field must be a float32 tensor of one shape ``[L, NY, NX]`` or
+    ``[B, L, NY, NX]`` on one device; one copy stacks them.
+    """
+    if type(F) is FieldPack:
+        return F
     fields = [F[k] for k in FIELD_KEYS]
+    g0 = fields[0]
     for k, g in zip(FIELD_KEYS, fields):
-        if (g.shape != T.shape or g.dtype != torch.float32
-                or g.device != T.device or not g.is_contiguous()):
-            raise ValueError(f"field {k} must be a contiguous float32 tensor "
-                             f"of T's shape {tuple(T.shape)} on {T.device}")
+        if (not torch.is_tensor(g) or g.dim() not in (3, 4)
+                or g.shape != g0.shape or g.dtype != torch.float32
+                or g.device != g0.device):
+            raise ValueError(
+                f"field {k} must be a float32 tensor [L,NY,NX] or "
+                f"[B,L,NY,NX] of {FIELD_KEYS[0]}'s shape "
+                f"{tuple(g0.shape)} on {g0.device}; got "
+                f"{getattr(g, 'dtype', type(g))} "
+                f"{tuple(getattr(g, 'shape', ()))} on "
+                f"{getattr(g, 'device', None)}")
+    return FieldPack(torch.stack(fields))
+
+
+def apply_operator_fields(T: torch.Tensor, F: dict, *, block_y: int = 32,
+                          interpret: bool = True) -> torch.Tensor:
+    """y = G T for ``T`` of shape [L, NY, NX] or [B, L, NY, NX]; every
+    field of ``F`` has T's shape, dtype and device.  Pass a
+    :class:`FieldPack` on a hot path: a plain dict is packed anew on each
+    call on the card.  ``block_y`` and ``interpret`` are the reference's
+    Pallas options and are ignored."""
+    if not T.is_cuda:
+        if T.device.type != "cpu":
+            raise ValueError(f"unsupported device {T.device}")
+        return apply_operator_fields_plain(T, F)
+    if type(F) is not FieldPack:
+        F = pack_fields(F)
+    if (T.shape != F.shape or T.dtype != torch.float32
+            or T.get_device() != F.device_index):
+        raise ValueError(f"T must be float32 of the fields' shape "
+                         f"{tuple(F.shape)} on {F.data.device}; got "
+                         f"{T.dtype} {tuple(T.shape)} on {T.device}")
     T = T.contiguous()
-    B = T.shape[0] if T.dim() == 4 else 1
-    L, NY, NX = T.shape[-3:]
     y = torch.empty_like(T)
-    if y.numel() == 0:
+    n = T.numel()
+    if n == 0:
         return y
-    lib = _lib()
-    rc = lib.thermal_stencil_fields(
-        T.data_ptr(), *(g.data_ptr() for g in fields), y.data_ptr(),
-        B, L, NY, NX, torch.cuda.current_stream(T.device).cuda_stream)
-    _build.check(rc, "thermal_stencil_fields")
+    if 7 * n >= 2 ** 31:
+        raise ValueError(f"{n} cells: the kernel indexes the pack with "
+                         f"32-bit integers")
+    rc = _fields_fn()(T.data_ptr(), F.data.data_ptr(), y.data_ptr(), n,
+                      *F.layers_y_x, _build.stream(F.device_index))
+    if rc:
+        _build.check(rc, "thermal_stencil_fields")
     apply_operator_fields.launches += 1
     return y
 
@@ -101,12 +164,43 @@ def apply_operator_plain(T: torch.Tensor, g_lat: torch.Tensor,
             + col(g_pkg) * T)
 
 
-def apply_operator(T: torch.Tensor, g_lat: torch.Tensor,
-                   gv_up: torch.Tensor, gv_dn: torch.Tensor,
-                   g_pkg: torch.Tensor) -> torch.Tensor:
+def vectors(L: int, g_lat, g_vert, g_pkg, device="cpu"):
+    """Scalar-or-vector conductances -> the four float32 [L] per-layer
+    vectors of the uniform stencil (g_lat, gv_up, gv_dn, g_pkg), on
+    ``device``: ``g_lat`` scalar or [L], ``g_vert`` scalar or [L-1]
+    (interfaces, top to bottom), ``g_pkg`` a scalar on the last layer."""
+    as32 = lambda x: torch.as_tensor(np.asarray(x, np.float32)
+                                     if not torch.is_tensor(x) else x,
+                                     dtype=torch.float32, device=device)
+    g_lat = as32(g_lat).expand(L).contiguous()
+    g_vert = as32(g_vert).expand(max(L - 1, 1))[: L - 1]
+    zero = torch.zeros(1, dtype=torch.float32, device=device)
+    gv_u = torch.cat([zero, g_vert])
+    gv_d = torch.cat([g_vert, zero])
+    g_pkg_vec = torch.zeros(L, dtype=torch.float32, device=device)
+    g_pkg_vec[-1] = float(g_pkg)
+    return g_lat, gv_u, gv_d, g_pkg_vec
+
+
+def apply_operator(T: torch.Tensor, g_lat, g_vert, g_pkg, *,
+                   block_y: int = 32, interpret: bool = True
+                   ) -> torch.Tensor:
+    """y = G T of the uniform-per-layer stencil (the reference's
+    contract): ``g_lat`` scalar or [L], ``g_vert`` scalar or [L-1],
+    ``g_pkg`` a scalar.  ``block_y`` and ``interpret`` are the reference's
+    Pallas options and are ignored: the tensor's device picks the kernel
+    or the plain version."""
+    return apply_operator_vectors(
+        T, *vectors(T.shape[-3], g_lat, g_vert, g_pkg, T.device))
+
+
+def apply_operator_vectors(T: torch.Tensor, g_lat: torch.Tensor,
+                           gv_up: torch.Tensor, gv_dn: torch.Tensor,
+                           g_pkg: torch.Tensor) -> torch.Tensor:
     """y = G T of the uniform-per-layer stencil for ``T`` of shape
-    [L, NY, NX] or [B, L, NY, NX]; the four vectors are float32 [L] on
-    T's device (``thermal._vectors`` builds them), shared by the batch."""
+    [L, NY, NX] or [B, L, NY, NX], from the four per-layer float32 [L]
+    vectors on T's device (:func:`vectors` builds them once), shared by
+    the batch.  Its launches count on ``apply_operator.launches``."""
     vecs = (g_lat, gv_up, gv_dn, g_pkg)
     if T.device.type == "cpu":
         return apply_operator_plain(T, *vecs)
@@ -137,12 +231,23 @@ def apply_operator(T: torch.Tensor, g_lat: torch.Tensor,
 apply_operator.launches = 0
 
 
+_FIELDS_FN = None
+
+
+def _fields_fn():
+    """The fields kernel's ctypes entry, resolved once."""
+    global _FIELDS_FN
+    if _FIELDS_FN is None:
+        _FIELDS_FN = _lib().thermal_stencil_fields
+    return _FIELDS_FN
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("thermal_stencil")
     fn = lib.thermal_stencil_fields
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
     fn = lib.thermal_stencil_uniform
     if fn.argtypes is None:

@@ -33,10 +33,11 @@ Where the API differs from the reference:
   ``fori_loop`` are Python loops with the same fixed counts, and nothing
   inside them syncs with the host: the only sync is the final copy of
   the results.
-- There is no ``use_pallas`` argument: the device of the inputs picks the
-  stencil (the CUDA kernel for CUDA tensors, its plain version on the
-  CPU).  :func:`replay_cases` and :func:`run_stack_cosim` take
-  ``device`` (default ``"cuda"``).
+- ``use_pallas`` is accepted and ignored: the device of the inputs picks
+  the stencil (the CUDA kernel for CUDA tensors, its plain version on
+  the CPU).  :func:`replay_cases`, :func:`run_stack_cosim` and
+  :func:`assemble_case` take the keyword-only ``device`` (default
+  ``"cuda"``).
 - Not ported yet, and rejected where asked for: ``dt_scale`` (the
   variable-step replay; once ported it must refuse ``solver="mg"`` with
   the reference's ``ValueError``), ``n_shards``, sensor faults
@@ -58,6 +59,7 @@ from repro_torch.core import models as M
 from repro_torch.core import thermal
 from repro_torch.core.constants import AMBIENT_C, DRAM_LIMIT_C
 from repro_torch.core.floorplan import MM, APFloorplan, SIMDFloorplan
+from repro_torch.kernels.thermal_stencil import ops as stencil_ops
 from repro_torch.policy import Policy, PolicyContext, RampPolicy
 from repro_torch.stack import dram
 from repro_torch.stack.spec import (DRAM, LOGIC, PAPER_STACK, StackParams,
@@ -134,7 +136,8 @@ def _closed_loop(dyn_frames, leak0, refresh0, logic_mask, F, cap3,
     [B, L].  Returns (T_end [B,L,NY,NX], peak_C [B,T,n_die],
     min_C [B,T,n_die], residual_C [B,T], throttle [B,T], refresh_W [B,T],
     leak_W [B,T], dyn_W [B,T])."""
-    A = lambda v: thermal.apply_operator_fields(v, F)
+    F = stencil_ops.pack_fields(F)       # checked once, one pointer a launch
+    A = lambda v: stencil_ops.apply_operator_fields(v, F)
     dt = interval_dt / steps_per_interval
     solve = thermal.implicit_lhs_solver(A, F, cap3, dt, theta,
                                         solver=solver, n_cg=n_cg, n_mg=n_mg)
@@ -201,7 +204,8 @@ def closed_loop_replay(dyn_frames, leak0, refresh0, logic_mask, F: dict,
                        cap3, interval_dt, theta: float = 1.0,
                        t_amb: float = AMBIENT_C, *, fb: FeedbackParams,
                        die_n: int, n_die: int, steps_per_interval: int = 2,
-                       n_cg: int = 40, margin: int = 0, solver: str = "pcg",
+                       n_cg: int = 40, margin: int = 0,
+                       use_pallas: bool = False, solver: str = "pcg",
                        n_mg: int = 3, dt_scale=None):
     """Replay one frame stack with temperature feedback.
 
@@ -226,7 +230,8 @@ def closed_loop_batch(dyn_frames, leak0, refresh0, logic_mask, F: dict,
                       cap3, interval_dt, theta: float = 1.0,
                       t_amb: float = AMBIENT_C, *, fb: FeedbackParams,
                       die_n: int, n_die: int, steps_per_interval: int = 2,
-                      n_cg: int = 40, margin: int = 0, solver: str = "pcg",
+                      n_cg: int = 40, margin: int = 0,
+                      use_pallas: bool = False, solver: str = "pcg",
                       n_mg: int = 3):
     """Closed-loop replay over a leading design-point batch: every input
     of :func:`closed_loop_replay` with a leading ``[B]`` dimension, and
@@ -391,7 +396,7 @@ def check_finite_power(what: str, **arrays) -> None:
 
 def assemble_case(dp: M.DesignPoint, workload: str, machine: str,
                   spec: StackSpec, params: StackParams, grid_n: int,
-                  trace: cosim.PowerTrace, margin: int, device="cuda"):
+                  trace: cosim.PowerTrace, margin: int, *, device="cuda"):
     """Build the closed-loop replay inputs for one (workload, machine) case.
 
     Returns (dyn, leak0, refresh0, logic_mask, F, cap3): the power inputs
@@ -432,8 +437,9 @@ def _batch(xs, dev: torch.device) -> torch.Tensor:
 def replay_cases(cases, spec: StackSpec, fb: FeedbackParams, grid_n: int,
                  interval_dt: float, *, theta: float = 1.0,
                  steps_per_interval: int = 2, n_cg: int = 40,
-                 margin: int | None = None, solver: str = "pcg",
-                 n_mg: int = 3, n_shards: int | None = None,
+                 margin: int | None = None, use_pallas: bool = False,
+                 solver: str = "pcg", n_mg: int = 3,
+                 n_shards: int | None = None,
                  device="cuda") -> dict[str, StackReport]:
     """Replay pre-assembled cases as ONE batched closed-loop replay on
     ``device``.
@@ -448,7 +454,8 @@ def replay_cases(cases, spec: StackSpec, fb: FeedbackParams, grid_n: int,
     margin = grid_n // 4 if margin is None else margin
     labels = [label for label, _ in cases]
     dyns, leaks, refs, masks, Fs, caps = zip(*(leaves for _, leaves in cases))
-    Fb = {k: _batch([F[k] for F in Fs], dev) for k in Fs[0]}
+    Fb = stencil_ops.pack_fields(
+        {k: _batch([F[k] for F in Fs], dev) for k in Fs[0]})
     out = closed_loop_batch(
         _batch(dyns, dev), _batch(leaks, dev), _batch(refs, dev),
         _batch(masks, dev), Fb, _batch(caps, dev), interval_dt, theta,
@@ -478,8 +485,9 @@ def run_stack_cosim(workloads=("dmm", "fft", "bs"), n_dram: int = 2,
                     t_end: float = 0.25, steps_per_interval: int = 2,
                     n_cg: int = 40, theta: float = 1.0,
                     fb: FeedbackParams = FeedbackParams(),
-                    params: StackParams = PAPER_STACK, solver: str = "pcg",
-                    n_mg: int = 3, n_shards: int | None = None,
+                    params: StackParams = PAPER_STACK,
+                    use_pallas: bool = False, solver: str = "pcg",
+                    n_mg: int = 3, n_shards: int | None = None, *,
                     device="cuda") -> dict:
     """The paper's abstract claim, quantified: for each workload replay the
     AP and the same-performance SIMD under ``n_dram`` stacked DRAM dies

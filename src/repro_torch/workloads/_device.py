@@ -264,11 +264,20 @@ def count_probes(eng: APEngine, cols, keys) -> np.ndarray:
 # megakernel mode: op-group device programs + bulk (vectorized) host replay
 # ---------------------------------------------------------------------------
 
-def engine_backend(mode: str) -> str:
-    """The :class:`APEngine` backend for a workload ``mode``:
-    ``"megakernel"`` lowers the engine's schedule path through the
-    megakernel too; every other mode runs schedules on ``ap_match``."""
-    return "megakernel" if mode == "megakernel" else "ap_match"
+def engine_backend(backend: str, mode: str) -> str:
+    """Map a workload (backend, mode) pair to the :class:`APEngine`
+    backend, as the reference does.
+
+    ``mode="megakernel"`` lowers the engine's schedule path through the
+    megakernel too: jnp -> 'megakernel', pallas -> 'megakernel_pallas'
+    (both the megakernel here).  Every other mode keeps ``backend``."""
+    if mode != "megakernel":
+        return backend
+    if backend in ("jnp", "megakernel"):
+        return "megakernel"
+    if backend in ("pallas", "megakernel_pallas"):
+        return "megakernel_pallas"
+    raise ValueError(f"unknown backend {backend!r}")
 
 
 def _min_extract_group(copy_sched: PassSchedule, val: Field, active: Field,

@@ -144,12 +144,14 @@ def _phi(x: float) -> float:
 
 
 def ap_blackscholes(S, K, T, sigma, r: float = 0.05,
-                    device="cuda") -> tuple[np.ndarray, dict]:
+                    backend: str = "jnp", *, device="cuda"
+                    ) -> tuple[np.ndarray, dict]:
     """Call prices for option vectors (word-parallel on one AP)."""
     S, K, T, sigma = (np.asarray(v, np.float64) for v in (S, K, T, sigma))
     n = S.shape[0]
     n_words = max(((n + 31) // 32) * 32, 32)
-    eng = APEngine(n_words=n_words, n_bits=448, device=device)
+    eng = APEngine(n_words=n_words, n_bits=448, backend=backend,
+                   device=device)
     f = _alloc(eng)
 
     def load(field: Field, vals: np.ndarray) -> None:

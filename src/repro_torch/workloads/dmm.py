@@ -31,7 +31,8 @@ def plan_bits(n: int, m: int) -> int:
 
 
 def ap_matmul(A: np.ndarray, B: np.ndarray, m: int = 8,
-              device="cuda") -> tuple[np.ndarray, dict]:
+              backend: str = "jnp", *, device="cuda"
+              ) -> tuple[np.ndarray, dict]:
     """C = A @ B on one AP; A, B: uint [n, n] with entries < 2^m.
 
     Returns (C, engine counters).  Exact (integer) result.
@@ -46,7 +47,8 @@ def ap_matmul(A: np.ndarray, B: np.ndarray, m: int = 8,
 
     n_words = max(((n * n + 31) // 32) * 32, 32)   # round up to lane width
     n_bits = plan_bits(n, m)
-    eng = APEngine(n_words=n_words, n_bits=n_bits, device=device)
+    eng = APEngine(n_words=n_words, n_bits=n_bits, backend=backend,
+                   device=device)
 
     a_f = [eng.alloc.alloc(m, f"a{k}") for k in range(n)]
     b_f = [eng.alloc.alloc(m, f"b{k}") for k in range(n)]

@@ -110,8 +110,8 @@ def _broadcast_twiddles(eng: APEngine, plan: _Plan, stage: int, n: int,
 
 
 def ap_fft(x: np.ndarray, m: int = 16, frac: int = 12,
-           interconnect: str = "parallel", device="cuda"
-           ) -> tuple[np.ndarray, dict]:
+           interconnect: str = "parallel", backend: str = "jnp", *,
+           device="cuda") -> tuple[np.ndarray, dict]:
     """FFT of complex vector x (|x| <= 1 advisable) on an N-PU AP.
 
     Returns (X as complex128 from the fixed-point result, counters).
@@ -125,7 +125,8 @@ def ap_fft(x: np.ndarray, m: int = 16, frac: int = 12,
 
     # columns: data + partner + operand + product + t + w + idx + flags
     n_bits = (2 + 2 + 2 + 0 + 2 + 2) * m + 2 * m + stages + 6
-    eng = APEngine(n_words=n_words, n_bits=n_bits, device=device)
+    eng = APEngine(n_words=n_words, n_bits=n_bits, backend=backend,
+                   device=device)
     a = eng.alloc
     plan = _Plan(
         re=a.alloc(m, "re"), im=a.alloc(m, "im"),

@@ -27,8 +27,9 @@ def plan_bits(m: int) -> int:
 
 
 def ap_histogram(x: np.ndarray, n_bins: int, m: int = 8,
-                 mode: str = "device", n_shards: int | None = None,
-                 device="cuda") -> tuple[np.ndarray, dict]:
+                 backend: str = "jnp", mode: str = "device",
+                 n_shards: int | None = None, *, device="cuda"
+                 ) -> tuple[np.ndarray, dict]:
     """Histogram of unsigned ``x`` (< 2^m) into ``n_bins`` equal bins.
 
     ``n_bins`` must be a power of two dividing 2^m.  Returns
@@ -50,7 +51,7 @@ def ap_histogram(x: np.ndarray, n_bins: int, m: int = 8,
 
     n_words = max(((n + 31) // 32) * 32, 32)
     eng = APEngine(n_words=n_words, n_bits=plan_bits(m),
-                   backend=_device.engine_backend(mode),
+                   backend=_device.engine_backend(backend, mode),
                    n_shards=n_shards, device=device)
     val = eng.alloc.alloc(m, "val")
     buf = np.zeros(n_words, np.uint64)

@@ -36,8 +36,9 @@ def plan_bits(d: int, m: int, n: int) -> int:
 
 
 def ap_knn(db: np.ndarray, q: np.ndarray, k: int, m: int = 4,
-           mode: str = "device", n_shards: int | None = None,
-           device="cuda") -> tuple[np.ndarray, dict]:
+           backend: str = "jnp", mode: str = "device",
+           n_shards: int | None = None, *, device="cuda"
+           ) -> tuple[np.ndarray, dict]:
     """Indices of the k nearest rows of ``db`` to ``q`` (L1, ascending).
 
     db: uint [n, d] with entries < 2^m; q: uint [d].  Returns
@@ -62,7 +63,7 @@ def ap_knn(db: np.ndarray, q: np.ndarray, k: int, m: int = 4,
     idx_w = max(1, int(np.ceil(np.log2(max(n, 2)))))
     n_words = max(((n + 31) // 32) * 32, 32)
     eng = APEngine(n_words=n_words, n_bits=plan_bits(d, m, n),
-                   backend=_device.engine_backend(mode),
+                   backend=_device.engine_backend(backend, mode),
                    n_shards=n_shards, device=device)
     a = eng.alloc
     feat = [a.alloc(m, f"f{j}") for j in range(d)]

@@ -60,9 +60,9 @@ def extract_min(eng: APEngine, val: Field, active: Field,
     return v, eng.tag_count()
 
 
-def ap_sort(x: np.ndarray, m: int = 8, mode: str = "device",
-            n_shards: int | None = None, device="cuda"
-            ) -> tuple[np.ndarray, dict]:
+def ap_sort(x: np.ndarray, m: int = 8, backend: str = "jnp",
+            mode: str = "device", n_shards: int | None = None, *,
+            device="cuda") -> tuple[np.ndarray, dict]:
     """Sort unsigned integers ``x`` (< 2^m) ascending on an n-PU AP.
 
     Returns (sorted array, engine counters).  Exact.
@@ -80,7 +80,7 @@ def ap_sort(x: np.ndarray, m: int = 8, mode: str = "device",
 
     n_words = max(((n + 31) // 32) * 32, 32)
     eng = APEngine(n_words=n_words, n_bits=plan_bits(m),
-                   backend=_device.engine_backend(mode),
+                   backend=_device.engine_backend(backend, mode),
                    n_shards=n_shards, device=device)
     val = eng.alloc.alloc(m, "val")
     active = eng.alloc.alloc(1, "active")

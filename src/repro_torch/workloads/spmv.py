@@ -34,8 +34,9 @@ def plan_bits(n_rows: int, m: int) -> int:
 
 def ap_spmv(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
             x: np.ndarray, n_rows: int, m: int = 8,
-            mode: str = "device", n_shards: int | None = None,
-            device="cuda") -> tuple[np.ndarray, dict]:
+            backend: str = "jnp", mode: str = "device",
+            n_shards: int | None = None, *, device="cuda"
+            ) -> tuple[np.ndarray, dict]:
     """y = A @ x for A in COO form (rows, cols, vals); entries < 2^m.
 
     Returns (y[n_rows], engine counters).  Exact (integer).
@@ -60,7 +61,7 @@ def ap_spmv(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     r_w = max(1, int(np.ceil(np.log2(max(n_rows, 2)))))
     n_words = max(((nnz + 31) // 32) * 32, 32)
     eng = APEngine(n_words=n_words, n_bits=plan_bits(n_rows, m),
-                   backend=_device.engine_backend(mode),
+                   backend=_device.engine_backend(backend, mode),
                    n_shards=n_shards, device=device)
     row_f = eng.alloc.alloc(r_w, "row")
     a_f = eng.alloc.alloc(m, "a")

@@ -49,6 +49,27 @@ def test_stencil_kernel_equals_plain(cuda, shape):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("shape", [
+    (1, 4, 4), (20, 8, 8), (3, 1, 9), (3, 9, 1), (1, 1, 1), (2, 3, 5, 33),
+    (1, 7, 36, 36), (3, 17, 6, 7), (7, 384, 384)])
+def test_stencil_kernel_edge_shapes_equal_plain(cuda, shape):
+    """One thread a cell: L = 1 and L > 16, NY or NX of 1, NX not a
+    multiple of 4 or 32, B = 1 and 3-D input, bit for bit, from a pack
+    and from a dict of seven."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    T = torch.from_numpy(rng.uniform(45, 75, shape).astype(np.float32))
+    F = {k: torch.from_numpy(rng.uniform(0, 1e-2, shape).astype(np.float32))
+         for k in st_ops.FIELD_KEYS}
+    T, F = T.to(cuda), {k: v.to(cuda) for k, v in F.items()}
+    pack = st_ops.pack_fields(F)
+    want = st_ops.apply_operator_fields_plain(T, F)
+    before = st_ops.apply_operator_fields.launches
+    for fields in (pack, F):
+        torch.testing.assert_close(st_ops.apply_operator_fields(T, fields),
+                                   want, rtol=0, atol=0)
+    assert st_ops.apply_operator_fields.launches == before + 2
+
+
 def test_stencil_kernel_rejects_what_it_does_not_take(cuda):
     T = torch.zeros((3, 8, 8), device=cuda)
     F = {k: torch.zeros((3, 8, 8), device=cuda) for k in st_ops.FIELD_KEYS}
@@ -56,6 +77,12 @@ def test_stencil_kernel_rejects_what_it_does_not_take(cuda):
         st_ops.apply_operator_fields(T.double(), F)
     with pytest.raises(ValueError):
         st_ops.apply_operator_fields(T, dict(F, g_pkg=F["g_pkg"].cpu()))
+    pack = st_ops.pack_fields(F)
+    with pytest.raises(ValueError):
+        st_ops.apply_operator_fields(T[:, :4], pack)
+    with pytest.raises(ValueError):
+        st_ops.apply_operator_fields(T, st_ops.pack_fields(
+            {k: v.cpu() for k, v in F.items()}))
 
 
 def _smooth_case(shape, seed, cuda):
@@ -120,19 +147,26 @@ def test_uniform_stencil_kernel_equals_plain(cuda, shape):
     vecs[2][-1] = 0.0       # nor below the spreader
     T, vecs = T.to(cuda), [v.to(cuda) for v in vecs]
     before = st_ops.apply_operator.launches
-    y = st_ops.apply_operator(T, *vecs)
+    y = st_ops.apply_operator_vectors(T, *vecs)
     assert st_ops.apply_operator.launches == before + 1
     torch.testing.assert_close(y, st_ops.apply_operator_plain(T, *vecs),
                                rtol=0, atol=0)
+    # the reference's form: g_lat, g_vert, g_pkg
+    g_vert = vecs[2][:-1] if L > 1 else 0.0     # scalar or [L-1]
+    ref_form = st_ops.apply_operator(T, vecs[0], g_vert, 0.25)
+    torch.testing.assert_close(
+        ref_form, st_ops.apply_operator_plain(
+            T, *st_ops.vectors(L, vecs[0], g_vert, 0.25, cuda)),
+        rtol=0, atol=0)
 
 
 def test_uniform_stencil_kernel_rejects_bad_vectors(cuda):
     T = torch.zeros((3, 8, 8), device=cuda)
     v = torch.zeros(3, device=cuda)
     with pytest.raises(ValueError):
-        st_ops.apply_operator(T, v, v, v, torch.zeros(2, device=cuda))
+        st_ops.apply_operator_vectors(T, v, v, v, torch.zeros(2, device=cuda))
     with pytest.raises(ValueError):
-        st_ops.apply_operator(T, v, v, v.cpu(), v)
+        st_ops.apply_operator_vectors(T, v, v, v.cpu(), v)
 
 
 def _schedule(name):
@@ -167,6 +201,105 @@ def test_ap_kernel_rejects_out_of_range_columns(cuda):
     tab = torch.tensor([[7]], dtype=torch.int32, device=cuda)
     with pytest.raises(IndexError):
         ap_ops.run_schedule(planes, tab, tab * 0, tab * 0, tab * 0)
+    ok = torch.tensor([[1]], dtype=torch.int32, device=cuda)
+    with pytest.raises(IndexError):
+        ap_ops.run_schedule(planes, ok, ok, ok, ok, col_range=(0, 4))
+    with pytest.raises(ValueError):
+        ap_ops.run_schedule(planes, ok, ok, ok, ok, path="registers")
+
+
+def _random_tables(rng, n_bits, P, kc, kw, lo=0):
+    """A random schedule over columns [lo, n_bits): repeated columns in a
+    pass, a write column also compared in the same and the next pass, and
+    entries repeated as padding."""
+    cc = rng.integers(lo, n_bits, (P, kc))
+    wc = rng.integers(lo, n_bits, (P, kw))
+    if P > 1 and kc > 1:
+        cc[1:, -1] = wc[:-1, 0]          # the next pass compares a write
+        cc[:, 0] = wc[:, -1]             # the same pass compares it too
+    if kw > 1:
+        wc[::3, 1] = wc[::3, 0]          # one column written twice
+    if kc > 2:
+        cc[::2, 2] = cc[::2, 0]          # a repeated compare entry
+    ck = rng.integers(0, 2, (P, kc))
+    wk = rng.integers(0, 2, (P, kw))
+    return [np.ascontiguousarray(a, np.int32) for a in (cc, ck, wc, wk)]
+
+
+def _ap_case(cuda, n_bits, n_lanes, P, kc, kw, seed, lo=0):
+    rng = np.random.default_rng(seed)
+    tables = _random_tables(rng, n_bits, P, kc, kw, lo)
+    planes = interop.planes_from_reference(
+        rng.integers(0, 2 ** 32, (n_bits, n_lanes),
+                     dtype=np.uint64).astype(np.uint32), cuda)
+    tabs = [torch.from_numpy(t).to(cuda) for t in tables]
+    cols = np.concatenate([tables[0].ravel(), tables[2].ravel()])
+    col_range = (int(cols.min()), int(cols.max())) if P else (0, 0)
+    return planes, tabs, col_range
+
+
+@pytest.mark.parametrize("path", [None, "shared", "global"])
+@pytest.mark.parametrize("n_bits,n_lanes,P,kc,kw", [
+    (1, 1, 5, 1, 1), (7, 31, 9, 2, 2), (40, 33, 300, 4, 2),
+    (12, 32768, 64, 4, 2), (402, 32, 256, 4, 2), (30, 5, 2500, 3, 3),
+    (64, 40, 20, 16, 16), (26, 129, 200, 8, 1)])
+def test_ap_kernel_paths_equal_plain(cuda, path, n_bits, n_lanes, P, kc,
+                                     kw):
+    """Both paths bit for bit: n_lanes of 1, 31, 33 and 32768; P past one
+    table chunk (2500 > 1024); Kc and Kw that are not powers of two; a
+    write column compared in its own pass and the next; repeated
+    entries."""
+    planes, tabs, col_range = _ap_case(cuda, n_bits, n_lanes, P, kc, kw,
+                                       seed=n_bits * 31 + n_lanes + P)
+    before = ap_ops.run_schedule.launches
+    got, m = ap_ops.run_schedule(planes, *tabs, col_range=col_range,
+                                 path=path)
+    assert ap_ops.run_schedule.launches == before + 1
+    want, m_want = ap_ops.run_schedule_plain(planes, *tabs)
+    assert torch.equal(got, want) and torch.equal(m, m_want)
+    if path is None:
+        assert ap_ops.kernel_path(n_lanes, col_range, P, kc, kw) == "shared"
+
+
+@pytest.mark.parametrize("n_bits,lo,n_lanes", [(2000, 0, 33), (2000, 1990, 33),
+                                               (1900, 0, 1)])
+def test_ap_kernel_tile_past_shared_memory(cuda, n_bits, lo, n_lanes):
+    """Rows past one shared-memory tile (2000 x 128 B > 227 KB) take the
+    device-memory path; the same planes with a narrow column range keep
+    the shared-memory one (the rows outside it are copied through)."""
+    planes, tabs, col_range = _ap_case(cuda, n_bits, n_lanes, 40, 4, 2,
+                                       seed=n_bits + lo, lo=lo)
+    expect = "shared" if col_range[1] - col_range[0] < 1500 else "global"
+    assert ap_ops.kernel_path(n_lanes, col_range, 40, 4, 2) == expect
+    got, m = ap_ops.run_schedule(planes, *tabs, col_range=col_range)
+    want, m_want = ap_ops.run_schedule_plain(planes, *tabs)
+    assert torch.equal(got, want) and torch.equal(m, m_want)
+    if expect == "global":
+        with pytest.raises(RuntimeError):
+            ap_ops.run_schedule(planes, *tabs, col_range=col_range,
+                                path="shared")
+
+
+def test_ap_kernel_empty_schedule_and_wide_tables(cuda):
+    """P = 0 launches nothing and returns the planes and no counts; Kc
+    above 16 takes the device-memory path."""
+    planes, tabs, _ = _ap_case(cuda, 8, 3, 0, 2, 1, seed=0)
+    before = ap_ops.run_schedule.launches
+    got, m = ap_ops.run_schedule(planes, *tabs)
+    assert ap_ops.run_schedule.launches == before
+    assert torch.equal(got, planes) and m.shape == (0,)
+    planes, tabs, col_range = _ap_case(cuda, 40, 33, 30, 17, 2, seed=1)
+    assert ap_ops.kernel_path(33, col_range, 30, 17, 2) == "global"
+    got, m = ap_ops.run_schedule(planes, *tabs)
+    want, m_want = ap_ops.run_schedule_plain(planes, *tabs)
+    assert torch.equal(got, want) and torch.equal(m, m_want)
+
+
+def test_ap_latency_probe(cuda):
+    """The probe's chains take some cycles each, at a clock of a card."""
+    t = ap_ops.latency_probe(cuda, iters=256)
+    assert 5 < t["load_cycles"] < 200 and 1 < t["alu_cycles"] < 50
+    assert t["rmw_cycles"] >= t["alu_cycles"] and 0.5 < t["sm_ghz"] < 3.0
 
 
 def _random_group(rng, n_bits, P, conditional):

@@ -219,8 +219,9 @@ def test_engine_megakernel_run_matches_reference(n_words):
 
 
 def test_engine_backend_choices():
+    assert tengine.APEngine.BACKENDS == jengine.APEngine.BACKENDS
     with pytest.raises(ValueError, match="backend"):
-        tengine.APEngine(32, 4, backend="pallas", device="cpu")
+        tengine.APEngine(32, 4, backend="ap_match", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tengine.APEngine(32, 4, backend="megakernel", n_shards=2,
                          device="cpu")

@@ -168,7 +168,7 @@ def test_min_extract_trace_matches_reference(program, readout):
     backend = "megakernel" if program == "megakernel" else "jnp"
     je, *jf = _extract_setup(jengine, x, m, dict(backend=backend))
     te, *tf = _extract_setup(tengine, x, m, dict(
-        backend=tdev.engine_backend(program), device="cpu"))
+        backend=tdev.engine_backend("jnp", program), device="cpu"))
     jtr = jrun(je, *jf, rounds=rounds, remaining=remaining, readout=readout)
     ttr = trun(te, *tf, rounds=rounds, remaining=remaining, readout=readout)
     want = interop.min_extract_trace_from_reference(jtr)
@@ -220,7 +220,7 @@ def test_sort_early_exhaustion(mode):
     for pkg_engine, dev, kw in (
             (jengine, jdev, dict(backend="megakernel" if mode ==
                                  "megakernel" else "jnp")),
-            (tengine, tdev, dict(backend=tdev.engine_backend(mode),
+            (tengine, tdev, dict(backend=tdev.engine_backend("jnp", mode),
                                  device="cpu"))):
         eng, val, active, cand = _extract_setup(pkg_engine, x, m, kw)
         run = dev.min_extract_rounds_mk if mode == "megakernel" \
