@@ -61,6 +61,10 @@ these phases, each printing one line with its result and seconds:
     and at 32 lanes, a bucketed multiply schedule as an all-PASS group at
     32768 lanes, and spmv's 512-op probe batch with its padded probes
     disabled; timed with CUDA events beside the bound and the plain time;
+    first the cluster probe (16 CTAs of 512 threads: the round trip of a
+    cluster barrier, a store into a peer's shared memory until its load
+    sees it, one op's chain in shared memory, the SM clock), and for the
+    conditional groups their latency bound beside the byte bound;
 14. the suite trace capture, ``registry.trace_counters(w, 1024, mode=m)``
     for sort, knn, hist and spmv in the eager, device and megakernel modes
     on the card and in device mode on the host: answers exact, counters
@@ -790,7 +794,8 @@ def profile(results):
     jobs.append(("uniform_large", "stencil_uniform", 20,
                  lambda: st_ops.apply_operator_vectors(T, *vecs)))
     mk_cases = _megakernel_cases()
-    for label, name in (("sort_round_32768", "group_solo"),
+    for label, name in (("sort_round_32768", "group_cluster"),
+                        ("sort_round_32", "group_cluster"),
                         ("mul_pass_32768", "group_tiled")):
         group, planes, tag, en = mk_cases[label]
         dg = mk_ops.device_group(group, "cuda")
@@ -834,7 +839,8 @@ _SMOOTH_CASES: dict = {}
 def _smooth_cases() -> dict:
     """Inputs (T, b, F, d_extra) of the smoother at the mg replay's finest
     level (``d_extra = cap3/dt``), its 18^2 level, and the 256^2 steady
-    grid (``d_extra = 0``), on the card; built once."""
+    grid's finest level (``d_extra = 0``), on the card, each a multigrid
+    level as the solvers build it; built once."""
     if _SMOOTH_CASES:
         return _SMOOTH_CASES
     import numpy as np
@@ -848,7 +854,7 @@ def _smooth_cases() -> dict:
                        spec=dram_on_logic(2)).fields("cuda")
     for i, (label, (Fl, dl)) in enumerate((
             ("replay", levels[0]), ("level18", levels[1]),
-            ("large", (big, torch.zeros_like(big["g_pkg"]))))):
+            ("large", multigrid.build_levels(big, 0.0)[0]))):
         rng = np.random.default_rng(100 + i)
         shape = tuple(Fl["g_pkg"].shape)
         T = torch.from_numpy(rng.normal(50.0, 20.0, shape)
@@ -1160,10 +1166,41 @@ def _group_traffic(group, executed, n_lanes: int):
     return n_bytes, n_ops, streamed
 
 
+def _mk_latency_bound_ms(probe: dict, group, executed, n_lanes: int,
+                         n_bytes: float) -> tuple[float, int]:
+    """The conditional kernel's latency bound (``ap_megakernel.cu``'s
+    note): E executed ops of one chain each; with more than one CTA, B
+    executed ops branched on, each a store into a peer's shared memory,
+    and 1 + 2 cluster barriers a chunk of ops; at the measured cycles and
+    SM clock, plus the bytes at the HBM rate -> (ms, B)."""
+    import numpy as np
+    from repro_torch.kernels.ap_megakernel import ops
+    P, kc = group.cmp_cols.shape
+    cols = np.concatenate([group.cmp_cols.ravel(), group.w_cols.ravel()])
+    plan = ops.plan_conditional(n_lanes, int(cols.max() - cols.min()) + 1,
+                                P, kc, group.w_cols.shape[1])
+    n_ex, n_br, n_bar = int(executed.sum()), 0, 0
+    if plan.cluster > 1:
+        n_br = int((executed & ops.branched_on(group.cond)).sum())
+        n_bar = 1 + 2 * -(-P // plan.chunk)
+    cycles = (n_ex * probe["op_cycles"] + n_br * probe["dsmem_cycles"]
+              + n_bar * probe["barrier_cycles"])
+    return (cycles / (probe["sm_ghz"] * 1e9) * 1e3
+            + n_bytes / HBM_BYTES_PER_S * 1e3, n_br)
+
+
 @phase("13 megakernel vs plain")
 def check_megakernel(results):
     import torch
     from repro_torch.kernels.ap_megakernel import ops, ref
+    probe = ops.cluster_probe("cuda")
+    results["mk_probe"] = probe
+    say(f"  cluster probe ({ops.PROBE_CLUSTER} CTAs of {ops.PROBE_THREADS} "
+        f"threads): barrier "
+        f"round trip {probe['barrier_cycles']:.1f} cycles, store -> peer "
+        f"load {probe['dsmem_cycles']:.1f} cycles, one op's chain "
+        f"{probe['op_cycles']:.1f} cycles, SM clock "
+        f"{probe['sm_ghz']:.3f} GHz")
     reps = {"sort_round_32768": 50, "sort_round_32": 200,
             "mul_pass_32768": 50, "spmv_probes_32": 100}
     for label, (group, planes, tag, en) in _megakernel_cases().items():
@@ -1177,9 +1214,13 @@ def check_megakernel(results):
             check(torch.equal(a, b), f"megakernel differs from plain at "
                   f"{label}: {what}")
         n_lanes = planes.shape[1]
-        n_bytes, n_ops, streamed = _group_traffic(
-            group, executed.cpu().numpy(), n_lanes)
+        ex = executed.cpu().numpy()
+        n_bytes, n_ops, streamed = _group_traffic(group, ex, n_lanes)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
+        lat_ms, n_br = None, 0
+        if group.conditional:
+            lat_ms, n_br = _mk_latency_bound_ms(probe, group, ex, n_lanes,
+                                                n_bytes)
         ms = cuda_ms(lambda: ops.run_group(planes, tag, dg, en),
                      reps[label])
         plain = cuda_ms(lambda: ref.group_scan_plain(
@@ -1191,11 +1232,14 @@ def check_megakernel(results):
             kw=kw, conditional=group.conditional, max_abs_err=0,
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
             streamed_bound_ms=streamed / HBM_BYTES_PER_S * 1e3,
+            latency_bound_ms=lat_ms, branched_executed=n_br,
             library_ms=None)
+        lat = "" if lat_ms is None else \
+            f", latency bound {lat_ms * 1e3:.2f} us ({n_br} exchanges)"
         say(f"  run_group {label}: {P} ops ({int(executed.sum())} run, "
             f"Kc={kc}, Kw={kw}, {'conditional' if group.conditional else 'tiled'}"
             f"): bit-identical; kernel {ms * 1e3:.2f} us, plain "
-            f"{plain * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
+            f"{plain * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}){lat}, "
             f"per-op streamed {streamed / HBM_BYTES_PER_S * 1e6:.2f} us")
 
 
@@ -1727,6 +1771,8 @@ def main() -> int:
                     f"{src}/ap_megakernel/csrc/ap_megakernel.cu",
                     f"{ref}/ap_megakernel/kernel.py:93",
                     mk_launches, results["mk_sort_round_32768"],
+                    latency_bound_ms=results["mk_sort_round_32768"][
+                        "latency_bound_ms"],
                     launches_by_path={
                         "suite_capture_megakernel_mode": mk_launches,
                         "paper_sort_2^20": sort_launches["ap_megakernel"],

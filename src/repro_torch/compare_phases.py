@@ -11,7 +11,10 @@ kernels (all but flash attention) and runs that checkout's own
 timed), 3 (the AP pass-schedule kernel, the same), 5 (the trio's pcg
 stack path: capture and replay seconds), the profiled 4-interval pcg
 replay window of phase 6 three times (wall time and device-busy share),
-11 (the mg stack path) and 16 (the suite stack path).  Give the roots as
+7 (the smoother kernel against its plain version at its three shapes,
+timed), 11 (the mg stack path), 13 (the op-group megakernel, timed at
+each case), 15 (the 2^20-byte sort in megakernel mode) and 16 (the
+suite stack path).  Give the roots as
 A B B A to see the spread between two runs of one tree.  It prints one
 line of times per run and the card's name and power limit, and writes
 every run's results to ``chiprun_out/compare_phases.json``.  It needs a
@@ -42,7 +45,10 @@ cs.check_stencil(results)
 cs.check_ap(results)
 cs.main_path(results)
 results["pcg_windows"] = [cs._replay_window("pcg") for _ in range(3)]
+cs.check_smoother(results)
 cs.mg_path(results)
+cs.check_megakernel(results)
+cs.paper_sort(results)
 cs.suite_stack(results)
 print("RESULT " + json.dumps(results, default=str))
 """
@@ -56,8 +62,14 @@ _COLUMNS = (("stencil 6x7x36x36 us", "stencil_main", "ms", 1e3),
             ("pcg replay s", "main_path", "replay_s", 1.0),
             ("window wall ms", "pcg_windows", "wall_s", 1e3),
             ("window busy %", "pcg_windows", "busy_share", 1e2),
+            ("smooth 6x7x36x36 us", "smooth_replay", "ms", 1e3),
+            ("smooth 6x7x18x18 us", "smooth_level18", "ms", 1e3),
+            ("smooth 7x384x384 us", "smooth_large", "ms", 1e3),
             ("mg capture s", "mg_path", "capture_s", 1.0),
             ("mg replay s", "mg_path", "replay_s", 1.0),
+            ("sort round 32768 us", "mk_sort_round_32768", "ms", 1e3),
+            ("sort round 32 us", "mk_sort_round_32", "ms", 1e3),
+            ("2^20 sort s", "paper_sort", "seconds", 1.0),
             ("suite capture s", "suite_stack", "capture_s", 1.0),
             ("suite replay s", "suite_stack", "replay_s", 1.0))
 

@@ -134,18 +134,16 @@ def build_levels(F: dict, d_extra, min_n: int = MIN_COARSE_N) -> list:
     Coarsening stops when either in-plane dimension goes odd or drops
     below ``min_n``.  ``d_extra`` (scalar or tensor) is expanded to the
     fields' shape, so every level carries full contiguous tensors; each
-    level's fields are one ``FieldPack``, checked once here.
+    level's fields are one ``FieldPack`` and, with its ``d_extra``,
+    checked once here (``smooth_ops.checked_level``).
     """
-    g = F["g_pkg"]
-    d_extra = torch.as_tensor(d_extra, dtype=g.dtype, device=g.device)
-    d_extra = d_extra.expand(g.shape).contiguous()
-    levels = [(stencil_ops.pack_fields(F), d_extra)]
+    levels = [smooth_ops.checked_level(F, d_extra)]
     while True:
         ny, nx = levels[-1][0]["g_pkg"].shape[-2:]
         if ny % 2 or nx % 2 or min(ny, nx) // 2 < min_n:
             return levels
-        Fc, dc = coarsen(*levels[-1], rescale_lateral=True)
-        levels.append((stencil_ops.pack_fields(Fc), dc))
+        levels.append(smooth_ops.checked_level(
+            *coarsen(*levels[-1], rescale_lateral=True)))
 
 
 # ---------------------------------------------------------------------------

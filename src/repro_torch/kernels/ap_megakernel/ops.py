@@ -9,13 +9,19 @@ falls back.  ``run_group.launches`` counts kernel launches.
 
 A device program that runs the same group many times uploads its tables
 once with :func:`device_group` and passes the result instead of the
-``OpGroup``: its columns were checked on the host, so a launch then reads
-nothing back from the card.
+``OpGroup``: its tables and columns were checked on the host, so a launch
+then checks only the planes and reads nothing back from the card.
+
+A conditional group runs in one thread block cluster, whose size and
+path (the tile in shared or in device memory) :func:`plan_conditional`
+picks by shape; :func:`cluster_probe` measures on the card the latencies
+that bound it.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -28,7 +34,9 @@ from repro_torch.kernels.ap_megakernel.ref import OpGroup
 @dataclasses.dataclass(frozen=True)
 class DeviceGroup:
     """An op group's tables as int32 tensors on one device (uint32 keys
-    keep their bits), with what the launch needs to know about them."""
+    keep their bits), with what the launch needs to know about them.
+    The tables are views of one tensor, ``packed``, which the kernels
+    take whole."""
     op: torch.Tensor
     cond: torch.Tensor
     cmp_cols: torch.Tensor
@@ -38,10 +46,17 @@ class DeviceGroup:
     enabled: torch.Tensor     # int32[P] of ones: the default mask
     conditional: bool
     col_range: tuple[int, int]
+    packed: torch.Tensor      # op, cond, enabled, cc, ck, wc, wk
+    dims: tuple[int, int, int]    # P, Kc, Kw
+    #: a conditional group's decoded records (:func:`records`), else None
+    records: torch.Tensor | None
+    #: the conditional kernel's host parameters by (n_bits, n_lanes)
+    launch: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
     @property
     def n_ops(self) -> int:
-        return int(self.op.shape[0])
+        return self.dims[0]
 
     def tables(self) -> tuple:
         return (self.op, self.cond, self.cmp_cols, self.cmp_key,
@@ -49,15 +64,159 @@ class DeviceGroup:
 
 
 def device_group(group: OpGroup, device) -> DeviceGroup:
-    """Upload ``group``'s tables to ``device`` once."""
-    as_t = lambda a: torch.from_numpy(
-        np.ascontiguousarray(a).view(np.int32)).to(device)
+    """Upload ``group``'s tables to ``device`` once, in one copy: op,
+    cond, the default enabled mask of ones, then the compare and write
+    columns and keys, packed into one int32 tensor."""
+    P = group.n_ops
+    kc, kw = group.cmp_cols.shape[1], group.w_cols.shape[1]
+    parts = (group.op, group.cond, np.ones(P, np.int32), group.cmp_cols,
+             group.cmp_key, group.w_cols, group.w_key)
+    packed = torch.from_numpy(np.concatenate(
+        [np.ascontiguousarray(a).view(np.int32).ravel() for a in parts])
+    ).to(device)
+    op, cond, en, cc, ck, wc, wk = packed.split(
+        (P, P, P, P * kc, P * kc, P * kw, P * kw))
     cols = np.concatenate([group.cmp_cols.ravel(), group.w_cols.ravel()])
-    return DeviceGroup(*(as_t(a) for a in group.tables()),
-                       enabled=torch.ones(group.n_ops, dtype=torch.int32,
-                                          device=device),
+    lo = int(cols.min())
+    recs = None
+    if group.conditional:
+        recs = torch.from_numpy(
+            records(group, lo).view(np.int32).reshape(-1)).to(device)
+    return DeviceGroup(op, cond, cc.view(P, kc), ck.view(P, kc),
+                       wc.view(P, kw), wk.view(P, kw), enabled=en,
                        conditional=group.conditional,
-                       col_range=(int(cols.min()), int(cols.max())))
+                       col_range=(lo, int(cols.max())), packed=packed,
+                       dims=(P, kc, kw), records=recs)
+
+
+def group_sizes(kc: int, kw: int) -> tuple[int, int]:
+    """Terms in one group of a record, (GC, GW): the conditional kernel
+    loads the rows of a group together, 2 or 4 compare terms and 1 or 4
+    write terms (template parameters of ``group_cluster``)."""
+    return (2 if kc <= 2 else 4), (1 if kw == 1 else 4)
+
+
+def records(group: OpGroup, lo: int) -> np.ndarray:
+    """The conditional kernel's decoded op records, uint32 ``[P, rv, 4]``:
+    a flags vector (opcode | cond << 2 | branched on << 6, see
+    :func:`branched_on`), then for every group of GC compare terms a
+    vector of rows counted from ``lo`` and one of broadcast keys (0 - key),
+    then the same for every group of GW write terms.  A group is padded by
+    repeating the op's last term."""
+    P, kc = group.cmp_cols.shape
+    kw = group.w_cols.shape[1]
+    gc, gw = group_sizes(kc, kw)
+    n_cg, n_wg = -(-kc // gc), -(-kw // gw)
+    rec = np.zeros((P, 1 + 2 * (n_cg + n_wg), 4), np.uint32)
+    rec[:, 0, 0] = (group.op.astype(np.uint32)
+                    | group.cond.astype(np.uint32) << 2
+                    | branched_on(group.cond).astype(np.uint32) << 6)
+
+    def put(cols, keys, g: int, n: int, at: int):
+        idx = np.minimum(np.arange(n * g), cols.shape[1] - 1)
+        rec[:, at:at + 2 * n:2, :g] = (cols[:, idx] - lo).reshape(P, n, g)
+        rec[:, at + 1:at + 2 * n:2, :g] = (
+            -np.asarray(keys, np.int64)[:, idx] & 0xFFFFFFFF).reshape(P, n, g)
+
+    put(group.cmp_cols, group.cmp_key, gc, n_cg, 1)
+    put(group.w_cols, group.w_key, gw, n_wg, 1 + 2 * n_cg)
+    return rec
+
+
+#: most CTAs in the cluster (16 with the non-portable cluster attribute)
+MAX_CLUSTER = 16
+#: lanes a CTA aims at: fewer lanes run on one CTA, with no cluster step
+LANES_PER_CTA = 1024
+#: most threads a CTA, and lanes a thread on the shared-memory path
+MAX_THREADS = 1024
+LANES_PER_THREAD = (1, 2, 4)
+#: shared memory a CTA may give the tile, and the op records and counts
+TILE_BYTES = 196608
+TABLE_BYTES = 24576
+
+
+@dataclasses.dataclass(frozen=True)
+class ConditionalPlan:
+    """How ``group_cluster`` runs a conditional group of one shape: on
+    ``path`` "shared" (the tile in shared memory) or "global" (in device
+    memory, where the cluster cannot hold it), a cluster of ``cluster``
+    CTAs of ``threads`` threads, CTA r owning lanes [r * slice, (r + 1) *
+    slice); on the shared-memory path a thread owns ``lpt`` of them (0 on
+    the device-memory path); ``chunk`` op records staged at a time.  ``tile_bytes`` (the tile, 0 on the device-memory
+    path) and ``table_bytes`` (a chunk's records, enabled mask and counts)
+    are a CTA's dynamic shared memory."""
+    path: str
+    cluster: int
+    threads: int
+    slice: int
+    lpt: int
+    chunk: int
+    tile_bytes: int
+    table_bytes: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def record_bytes(kc: int, kw: int) -> int:
+    """Bytes of one op's decoded record (:func:`records`): a flags vector,
+    then a vector of rows and one of keys for every group of terms."""
+    gc, gw = group_sizes(kc, kw)
+    return 16 * (1 + 2 * (-(-kc // gc) + -(-kw // gw)))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_conditional(n_lanes: int, rows: int, n_ops: int, kc: int,
+                     kw: int) -> ConditionalPlan:
+    """The launch of a conditional group over ``n_lanes`` lanes whose
+    tables touch ``rows`` consecutive rows, chosen by shape alone.
+
+    The cluster has the fewest CTAs, a power of two up to
+    :data:`MAX_CLUSTER`, that give each about :data:`LANES_PER_CTA`
+    lanes; a CTA's slice is split over at most 1024 threads, 1, 2 or 4
+    lanes a thread.  Where that slice needs more than 4 lanes a thread, or
+    its tile (``rows * slice`` words) exceeds :data:`TILE_BYTES`, the
+    group takes the device-memory path.  The op records, the enabled mask
+    and the counts of each warp and of the CTA go in chunks of ops that
+    fit :data:`TABLE_BYTES`.
+    """
+    if n_lanes < 1 or rows < 1 or n_ops < 1 or kc < 1 or kw < 1:
+        raise ValueError(f"no conditional plan for {n_lanes} lanes, {rows} "
+                         f"rows, {n_ops} ops, Kc={kc}, Kw={kw}")
+    cluster = 1
+    while cluster < MAX_CLUSTER and cluster * LANES_PER_CTA < n_lanes:
+        cluster *= 2
+    need = -(-n_lanes // cluster)
+    path, threads, slice_, lpt, tile = "global", 0, need, 0, 0
+    for k in LANES_PER_THREAD:      # 1 or 2 lanes up to 512 threads, 4 up
+        t = _round_up(-(-need // k), 32)     # to 1024
+        if t <= (512 if k < LANES_PER_THREAD[-1] else MAX_THREADS):
+            if 4 * rows * t * k <= TILE_BYTES:
+                path, threads, slice_, lpt = "shared", t, t * k, k
+                tile = 4 * rows * slice_
+            break
+    if path == "global":
+        threads = min(MAX_THREADS, _round_up(need, 32))
+    per_op = record_bytes(kc, kw) + 4 * (2 + threads // 32)
+    chunk = min(n_ops, TABLE_BYTES // per_op)
+    if chunk < 1:
+        raise ValueError(f"an op of Kc={kc}, Kw={kw} terms does not fit "
+                         f"the kernel's {TABLE_BYTES}-byte table budget")
+    return ConditionalPlan(path, cluster, threads, slice_, lpt, chunk, tile,
+                           chunk * per_op)
+
+
+def branched_on(cond) -> np.ndarray:
+    """bool[P]: the ops that a later op branches on (some q in p+1..p+4
+    with ``cond[q] == q - p``), the only ones whose counts the cluster
+    kernel exchanges between its CTAs (flagged in their records)."""
+    cond = np.asarray(cond)
+    P = cond.shape[0]
+    out = np.zeros(P, bool)
+    for d in range(1, ref.MAX_COND + 1):
+        out[:max(P - d, 0)] |= cond[d:] == d
+    return out
 
 
 def run_group(planes: torch.Tensor, tag: torch.Tensor,
@@ -72,57 +231,61 @@ def run_group(planes: torch.Tensor, tag: torch.Tensor,
     The inputs are left unchanged.  ``backend``, ``mesh``,
     ``block_lanes`` and ``interpret`` are the reference's options and are
     ignored: the planes' device picks the kernel or the plain version,
-    and the lanes are not sharded (the result is the same).
+    and the lanes are not sharded (the result is the same).  A
+    conditional group runs as :func:`plan_conditional` plans it.
     """
-    if planes.device.type == "cpu":
+    if not planes.is_cuda:
+        if planes.device.type != "cpu":
+            raise ValueError(f"unsupported device {planes.device}")
         out_planes, out_tag, matched, _ = ref.group_scan_plain(
             planes, tag, group.tables(), enabled)
         return out_planes, out_tag, matched
-    if planes.device.type != "cuda":
-        raise ValueError(f"unsupported device {planes.device}")
     if planes.dim() != 2 or planes.dtype != torch.int32:
         raise ValueError(f"planes must be int32 [n_bits, n_lanes]; got "
                          f"{planes.dtype} {tuple(planes.shape)}")
     n_bits, n_lanes = planes.shape
-    if (tuple(tag.shape) != (n_lanes,) or tag.dtype != torch.int32
-            or tag.device != planes.device):
+    dev = planes.get_device()
+    if (tag.shape != (n_lanes,) or tag.dtype != torch.int32
+            or tag.get_device() != dev):
         raise ValueError(f"tag must be int32 [{n_lanes}] on {planes.device};"
                          f" got {tag.dtype} {tuple(tag.shape)} on "
                          f"{tag.device}")
-    dg = group if isinstance(group, DeviceGroup) \
+    dg = group if type(group) is DeviceGroup \
         else device_group(group, planes.device)
-    P, kc = dg.cmp_cols.shape
-    kw = dg.w_cols.shape[1]
-    for t, shape in zip(dg.tables(), ((P,), (P,), (P, kc), (P, kc),
-                                      (P, kw), (P, kw))):
-        if (tuple(t.shape) != shape or t.dtype != torch.int32
-                or t.device != planes.device or not t.is_contiguous()):
-            raise ValueError(f"group tables must be contiguous int32 [P], "
-                             f"[P,Kc], [P,Kw] on {planes.device}; got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if dg.packed.get_device() != dev:
+        raise ValueError(f"group tables on {dg.packed.device}, planes on "
+                         f"{planes.device}")
+    P, kc, kw = dg.dims
     lo, hi = dg.col_range
     if lo < 0 or hi >= n_bits:
         raise IndexError(f"group column outside [0, {n_bits})")
-    if enabled is None:
-        en = dg.enabled
-    else:
+    en = None            # the kernels read the packed mask of ones
+    if enabled is not None:
         en = torch.as_tensor(enabled, device=planes.device).to(torch.int32)
-        if tuple(en.shape) != (P,):
+        if en.shape != (P,):
             raise ValueError(f"enabled must have shape ({P},); got "
                              f"{tuple(en.shape)}")
-    out_planes = planes.contiguous().clone()
-    out_tag = tag.contiguous().clone()
-    matched = torch.zeros(P, dtype=torch.int32, device=planes.device)
+        en = en.contiguous()
+    planes = planes.contiguous()
+    tag = tag.contiguous()
+    if not dg.conditional:
+        return _run_tiled(planes, tag, dg, en, dev)
+    out_planes = torch.empty_like(planes)
+    out_tag = torch.empty_like(tag)
+    matched = torch.empty(P, dtype=torch.int32, device=planes.device)
     if n_lanes == 0:
-        return out_planes, out_tag, matched
-    en = en.contiguous()
-    rc = _lib().ap_megakernel_run_group(
-        out_planes.data_ptr(), out_tag.data_ptr(), n_bits, n_lanes,
-        dg.op.data_ptr(), dg.cond.data_ptr(), en.data_ptr(),
-        *(t.data_ptr() for t in dg.tables()[2:]),
-        P, kc, kw, int(dg.conditional), matched.data_ptr(),
-        torch.cuda.current_stream(planes.device).cuda_stream)
-    _build.check(rc, "ap_megakernel_run_group")
+        return out_planes, out_tag, matched.zero_()
+    prm = dg.launch.get((n_bits, n_lanes))
+    if prm is None:
+        prm = dg.launch[(n_bits, n_lanes)] = _launch_params(dg, n_bits,
+                                                            n_lanes)
+    rc = _fn("ap_megakernel_run_conditional")(
+        planes.data_ptr(), out_planes.data_ptr(), tag.data_ptr(),
+        out_tag.data_ptr(), dg.records.data_ptr(),
+        None if en is None else en.data_ptr(), matched.data_ptr(), prm,
+        _build.stream(dev))
+    if rc:
+        _build.check(rc, "ap_megakernel_run_conditional")
     run_group.launches += 1
     return out_planes, out_tag, matched
 
@@ -130,12 +293,83 @@ def run_group(planes: torch.Tensor, tag: torch.Tensor,
 run_group.launches = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ap_megakernel")
-    fn = lib.ap_megakernel_run_group
-    if fn.argtypes is None:
+def _launch_params(dg: DeviceGroup, n_bits: int, n_lanes: int):
+    """The conditional kernel's host parameters for ``dg`` over planes of
+    ``n_bits x n_lanes`` (``ap_megakernel_run_conditional``'s ``prm``):
+    the shapes, the records' groups of terms and the plan."""
+    if n_bits * n_lanes >= 2 ** 31:
+        raise ValueError(f"{n_bits} x {n_lanes} words: the kernel indexes "
+                         f"rows with 32-bit offsets")
+    P, kc, kw = dg.dims
+    lo, hi = dg.col_range
+    gc, gw = group_sizes(kc, kw)
+    pl = plan_conditional(n_lanes, hi - lo + 1, P, kc, kw)
+    return (ctypes.c_int * 14)(
+        n_bits, n_lanes, lo, hi - lo + 1, P, -(-kc // gc), -(-kw // gw), gc,
+        gw, pl.cluster, pl.threads, pl.slice, pl.lpt, pl.chunk)
+
+
+def _run_tiled(planes, tag, dg: DeviceGroup, en, dev: int):
+    """An unconditional group: ``group_tiled`` in place on copies."""
+    P, kc, kw = dg.dims
+    out_planes = planes.clone()
+    out_tag = tag.clone()
+    matched = torch.zeros(P, dtype=torch.int32, device=planes.device)
+    if planes.shape[1] == 0:
+        return out_planes, out_tag, matched
+    rc = _fn("ap_megakernel_run_group")(
+        out_planes.data_ptr(), out_tag.data_ptr(), planes.shape[1],
+        dg.packed.data_ptr(), None if en is None else en.data_ptr(), P, kc,
+        kw, matched.data_ptr(), _build.stream(dev))
+    if rc:
+        _build.check(rc, "ap_megakernel_run_group")
+    run_group.launches += 1
+    return out_planes, out_tag, matched
+
+
+#: the probe's cluster: the 2^20 sort's rounds (16 CTAs of 512 threads)
+PROBE_CLUSTER, PROBE_THREADS = 16, 512
+
+
+def cluster_probe(device="cuda", iters: int = 4096) -> dict:
+    """Cycle counts on the card, from ``ap_megakernel_probe`` launched as
+    one cluster of :data:`PROBE_CLUSTER` CTAs of :data:`PROBE_THREADS`
+    threads:
+    ``barrier_cycles`` (the round trip of a cluster barrier),
+    ``dsmem_cycles`` (a store into a peer CTA's shared memory until the
+    peer's load sees it: half a ping-pong between CTAs 0 and 1),
+    ``op_cycles`` (one op's chain in shared memory on one warp: load,
+    logic, popcount, warp reduction, store, the next load) and ``sm_ghz``
+    (the SM clock over the probe)."""
+    out = torch.zeros(7, dtype=torch.int64, device=device)
+    _build.check(_fn("ap_megakernel_probe")(
+        out.data_ptr(), iters, PROBE_CLUSTER, PROBE_THREADS,
+        _build.stream(out.get_device())), "ap_megakernel_probe")
+    t = out.tolist()
+    if t[6]:
+        raise RuntimeError("ap_megakernel_probe: a store into a peer's "
+                           "shared memory was not seen by its load")
+    return dict(barrier_cycles=t[0] / iters, dsmem_cycles=t[1] / iters / 2,
+                op_cycles=t[2] / iters, sm_ghz=t[3] / t[4])
+
+
+_ARGTYPES = {
+    "ap_megakernel_run_group": [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+    "ap_megakernel_run_conditional": [ctypes.c_void_p] * 7
+    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
+    "ap_megakernel_probe": [ctypes.c_void_p] + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+}
+_FNS: dict = {}
+
+
+def _fn(name: str):
+    """The library's C entry ``name``, typed and resolved once."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load("ap_megakernel"), name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int] + [ctypes.c_void_p] * 7 \
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    return lib
+        fn.argtypes = _ARGTYPES[name]
+        _FNS[name] = fn
+    return fn

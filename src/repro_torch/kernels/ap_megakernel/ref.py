@@ -203,7 +203,8 @@ def group_scan_plain(planes: torch.Tensor, tag: torch.Tensor, tables,
 
 def executed_ops(cond: torch.Tensor, enabled: torch.Tensor,
                  matched: torch.Tensor) -> torch.Tensor:
-    """Which ops of a group ran, from its ``matched`` counts (bool[P]).
+    """Which ops of a group ran, from its ``matched`` counts (bool[P], or
+    [R, P] for the counts of R runs of the group).
 
     An op ran iff it was enabled and its condition held on the count of
     the op ``cond`` slots back — exactly the predicate the executors
@@ -212,14 +213,16 @@ def executed_ops(cond: torch.Tensor, enabled: torch.Tensor,
     """
     P = cond.shape[0]
     src = torch.arange(P, device=cond.device) - cond.long()
-    prev = matched[src.clamp(min=0)]
+    prev = matched[..., src.clamp(min=0)]
     ok = (cond == 0) | ((src >= 0) & (prev > 0))
     return enabled.bool() & ok
 
 
 def counter_delta(op: torch.Tensor, matched: torch.Tensor,
                   executed: torch.Tensor) -> torch.Tensor:
-    """Packed int32[N_COUNTERS] delta a group contributes on device.
+    """Packed int32[N_COUNTERS] delta a group contributes on device
+    ([R, N_COUNTERS] for the counts of R runs, ``matched`` and
+    ``executed`` [R, P]).
 
     Mirrors what the ``state_*`` op chain would accumulate: a PASS is a
     compare + a write cycle, CMP/WRITE one cycle each; every non-WRITE
@@ -231,9 +234,10 @@ def counter_delta(op: torch.Tensor, matched: torch.Tensor,
     is_pass = (op == OP_PASS).to(torch.int32)
     is_wr = (op == OP_WRITE).to(torch.int32)
     parts = [None] * E.N_COUNTERS
-    parts[E.CTR_CYCLES] = (ex * (1 + is_pass)).sum()
-    parts[E.CTR_COMPARE] = (ex * (1 - is_wr)).sum()
-    parts[E.CTR_WRITE] = (ex * (is_pass | is_wr)).sum()
-    parts[E.CTR_READ] = torch.zeros((), dtype=torch.int64, device=op.device)
-    parts[E.CTR_MATCH] = (matched.to(torch.int32) * (1 - is_wr)).sum()
-    return torch.stack(parts).to(torch.int32)
+    parts[E.CTR_CYCLES] = (ex * (1 + is_pass)).sum(-1)
+    parts[E.CTR_COMPARE] = (ex * (1 - is_wr)).sum(-1)
+    parts[E.CTR_WRITE] = (ex * (is_pass | is_wr)).sum(-1)
+    parts[E.CTR_READ] = torch.zeros(ex.shape[:-1], dtype=torch.int64,
+                                    device=op.device)
+    parts[E.CTR_MATCH] = (matched.to(torch.int32) * (1 - is_wr)).sum(-1)
+    return torch.stack(parts, dim=-1).to(torch.int32)

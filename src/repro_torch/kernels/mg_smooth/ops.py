@@ -6,6 +6,11 @@ runs :func:`rb_line_sweep_plain`; for a CUDA tensor it launches the
 hand-written kernel ``csrc/mg_smooth.cu`` (which replaces the TPU kernel
 ``rb_line_sweep_kernel`` of the reference package) or raises — it never
 falls back.  ``rb_line_sweep.launches`` counts kernel launches.
+
+The coefficients go to the kernel split by colour, with the parts of
+the Thomas recursion that depend on them alone precomputed
+(:func:`thomas_coefficients`); a level made by :func:`checked_level` is
+checked and set up once, so a launch on it checks only ``T`` and ``b``.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.thermal_stencil.ops import (
-    FIELD_KEYS, face_diagonal, shift)
+    FIELD_KEYS, FieldPack, face_diagonal, pack_fields, shift)
 
 #: most layers a column may have on the card (the kernel keeps the
 #: Thomas coefficients of a column in registers up to this cap)
@@ -77,6 +82,87 @@ def rb_line_sweep_plain(T: torch.Tensor, b: torch.Tensor, F: dict, d_extra,
     return torch.where(mask, u, T)
 
 
+def split_by_colour(F: FieldPack, d_extra: torch.Tensor) -> torch.Tensor:
+    """The smoother kernel's coefficients, ``[2, 8, *lead, L, NY, NXH]``
+    with ``NXH = ceil(NX / 2)``: for colour c, the seven fields
+    (``FIELD_KEYS`` order) and ``d_extra`` at the cells (y, 2i + ((y + c)
+    & 1)) that a half-sweep of colour c solves, packed densely, so a sweep
+    reads only its own half.  (Past an odd NX edge the last i of a row
+    repeats the edge cell; no sweep reads it.)  ``d_extra`` has the
+    fields' shape or broadcasts to it."""
+    data = torch.cat([F.data, d_extra.expand(F.shape)[None]])
+    NY, NX = data.shape[-2:]
+    y = torch.arange(NY, device=data.device)[:, None]
+    i = torch.arange((NX + 1) // 2, device=data.device)[None, :]
+    return torch.stack([
+        torch.gather(data, -1, (2 * i + ((y + c) & 1)).clamp(max=NX - 1)
+                     .expand(*data.shape[:-1], i.shape[-1]))
+        for c in (0, 1)])
+
+
+def thomas_coefficients(F: FieldPack, d_extra: torch.Tensor
+                        ) -> torch.Tensor:
+    """The smoother kernel's coefficients, ``[2, 7, *lead, L, NY, NXH]``,
+    split by colour (:func:`split_by_colour`): ``gx_lf``, ``gx_rt``,
+    ``gy_up``, ``gy_dn``, then ``lo = -gz_up`` and the parts of the Thomas
+    recursion that depend on the coefficients alone, the pivots
+    ``denom[l]`` and forward coefficients ``cp[l]``, computed by the same
+    float32 operations, in the same order, as :func:`line_solve`."""
+    gx_lf, gx_rt, gy_up, gy_dn, gz_up, gz_dn, g_pkg, d = \
+        split_by_colour(F, d_extra).unbind(1)
+    diag = gx_lf + gx_rt + gy_up + gy_dn + gz_up + gz_dn + g_pkg + d
+    diag = torch.where(diag > 0, diag, 1.0)
+    lo, up = -gz_up, -gz_dn
+    at = lambda x, l: x.select(-3, l)
+    denom = [at(diag, 0)]
+    cp = [at(up, 0) / denom[0]]
+    for l in range(1, diag.shape[-3]):
+        dn = at(diag, l) - at(lo, l) * cp[-1]
+        denom.append(torch.where(dn.abs() > 0, dn, 1.0))
+        cp.append(at(up, l) / denom[-1])
+    return torch.stack([gx_lf, gx_rt, gy_up, gy_dn, lo,
+                        torch.stack(denom, dim=-3), torch.stack(cp, dim=-3)],
+                       dim=1)
+
+
+def checked_level(F: dict, d_extra) -> tuple[FieldPack, torch.Tensor]:
+    """A multigrid level ``(F', d')`` whose smoother calls skip the
+    per-call checks and the set-up of the fields and ``d_extra``.
+
+    ``F'`` is a new :class:`FieldPack` over ``F``'s data (``F`` itself is
+    left as it is) and ``d'`` is ``d_extra`` as a contiguous float32
+    tensor of the fields' shape on their device (a scalar is expanded);
+    both are checked, and the kernel's coefficients made from them
+    (:func:`thomas_coefficients`), once here.  :func:`rb_line_sweep` given
+    exactly this pair checks only ``T`` and ``b``.
+    """
+    pack = FieldPack(pack_fields(F).data)
+    g = pack["g_pkg"]
+    d = torch.as_tensor(d_extra, dtype=g.dtype, device=g.device)
+    d = d.expand(g.shape).contiguous()
+    pack.smoother_extra = d
+    pack.smoother_coefficients = thomas_coefficients(pack, d)
+    return pack, d
+
+
+def _checked_coefficients(F: dict, d_extra
+                          ) -> tuple[FieldPack, torch.Tensor]:
+    """``F`` as a pack and the kernel's coefficients, after every check:
+    a plain dict of fields is packed; a tensor ``d_extra`` must be
+    contiguous float32 of the fields' shape on their device, and a scalar
+    is expanded."""
+    F = pack_fields(F)
+    if not torch.is_tensor(d_extra):
+        d_extra = torch.tensor(float(d_extra), device=F.data.device)
+    elif (d_extra.shape != F.shape or d_extra.dtype != torch.float32
+            or d_extra.get_device() != F.device_index
+            or not d_extra.is_contiguous()):
+        raise ValueError(f"d_extra must be a contiguous float32 tensor of "
+                         f"the fields' shape {tuple(F.shape)} on "
+                         f"{F.data.device}")
+    return F, thomas_coefficients(F, d_extra)
+
+
 def rb_line_sweep(T: torch.Tensor, b: torch.Tensor, F: dict, d_extra,
                   color: int, *, block_y: int = 32,
                   interpret: bool = True) -> torch.Tensor:
@@ -85,41 +171,49 @@ def rb_line_sweep(T: torch.Tensor, b: torch.Tensor, F: dict, d_extra,
     ``T`` and ``b`` are [L, NY, NX] or [B, L, NY, NX]; every field of
     ``F`` has T's shape; ``d_extra`` is a scalar or a tensor of T's shape
     (a scalar is expanded, as the reference's wrapper broadcasts it).
-    ``block_y`` and ``interpret`` are the reference's Pallas options and
-    are ignored.
+    A level from :func:`checked_level` (as every level of
+    ``multigrid.build_levels`` is) is checked, and its kernel coefficients
+    made, once there; for any other ``F`` and ``d_extra`` that is done on
+    each call on the card.  ``block_y`` and ``interpret`` are the
+    reference's Pallas options and are ignored.
     """
     if color not in (0, 1):
         raise ValueError(f"color must be 0 or 1; got {color!r}")
-    if T.device.type == "cpu":
+    if not T.is_cuda:
+        if T.device.type != "cpu":
+            raise ValueError(f"unsupported device {T.device}")
         return rb_line_sweep_plain(T, b, F, d_extra, color)
-    if T.device.type != "cuda":
-        raise ValueError(f"unsupported device {T.device}")
-    if T.dim() not in (3, 4) or T.dtype != torch.float32:
-        raise ValueError(f"T must be float32 [L,NY,NX] or [B,L,NY,NX]; got "
-                         f"{T.dtype} {tuple(T.shape)}")
-    L, NY, NX = T.shape[-3:]
+    if (type(F) is FieldPack and d_extra is not None
+            and F.__dict__.get("smoother_extra") is d_extra):
+        coef = F.smoother_coefficients
+    else:
+        F, coef = _checked_coefficients(F, d_extra)
+    dev = F.device_index
+    if (T.shape != F.shape or T.dtype != torch.float32
+            or T.get_device() != dev or b.shape != F.shape
+            or b.dtype != torch.float32 or b.get_device() != dev):
+        raise ValueError(f"T and b must be float32 tensors of the fields' "
+                         f"shape {tuple(F.shape)} on {F.data.device}; got "
+                         f"{T.dtype} {tuple(T.shape)} on {T.device} and "
+                         f"{b.dtype} {tuple(b.shape)} on {b.device}")
+    L, NY, NX = F.layers_y_x
     if L > MAX_LAYERS:
         raise ValueError(f"{L} layers; the kernel takes at most "
                          f"{MAX_LAYERS}")
-    if not torch.is_tensor(d_extra):
-        d_extra = torch.full_like(T, float(d_extra))
-    arrays = [("b", b)] + [(k, F[k]) for k in FIELD_KEYS] \
-        + [("d_extra", d_extra)]
-    for name, a in arrays:
-        if (a.shape != T.shape or a.dtype != torch.float32
-                or a.device != T.device or not a.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous float32 tensor "
-                             f"of T's shape {tuple(T.shape)} on {T.device}")
     T = T.contiguous()
-    B = T.shape[0] if T.dim() == 4 else 1
+    b = b.contiguous()
     out = torch.empty_like(T)
-    if out.numel() == 0:
+    n = T.numel()
+    if n == 0:
         return out
-    rc = _lib().mg_rb_line_sweep(
-        T.data_ptr(), *(a.data_ptr() for _, a in arrays), out.data_ptr(),
-        B, L, NY, NX, int(color),
-        torch.cuda.current_stream(T.device).cuda_stream)
-    _build.check(rc, "mg_rb_line_sweep")
+    if coef.numel() >= 2 ** 31:
+        raise ValueError(f"{n} cells: the kernel indexes the coefficients "
+                         f"with 32-bit integers")
+    rc = _sweep_fn()(T.data_ptr(), b.data_ptr(), coef.data_ptr(),
+                     out.data_ptr(), n // (L * NY * NX), L, NY, NX, color,
+                     _build.stream(dev))
+    if rc:
+        _build.check(rc, "mg_rb_line_sweep")
     rb_line_sweep.launches += 1
     return out
 
@@ -127,11 +221,16 @@ def rb_line_sweep(T: torch.Tensor, b: torch.Tensor, F: dict, d_extra,
 rb_line_sweep.launches = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("mg_smooth")
-    fn = lib.mg_rb_line_sweep
-    if fn.argtypes is None:
+_SWEEP_FN = None
+
+
+def _sweep_fn():
+    """The kernel's ctypes entry, typed and resolved once."""
+    global _SWEEP_FN
+    if _SWEEP_FN is None:
+        fn = _build.load("mg_smooth").mg_rb_line_sweep
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
-    return lib
+        _SWEEP_FN = fn
+    return _SWEEP_FN

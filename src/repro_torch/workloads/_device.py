@@ -322,33 +322,43 @@ def _mk_rounds(state: E.APState, dg: mk_ops.DeviceGroup, remaining: int,
     masking semantics as :func:`min_extract_rounds`: every round runs the
     group from the carried state, and a round past the end keeps that
     state (its counts are still recorded).  Returns the final state and
-    the per-round (matched, tag, done) device tensors."""
+    the per-round (matched, tag, done) device tensors.
+
+    A round carries only what the next round needs (planes, tag, the
+    remaining count and whether the rounds are done); the counters follow
+    after the loop from every round's counts at once: a round adds its
+    delta unless the rounds were done before it (integer sums, so the
+    order does not matter).
+    """
     dev = state.planes.device
     count_idx = dg.n_ops - (3 if readout else 2)
-    read_unit = E._unit(dev, 1, 0, 0, 1, 0)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     rem = torch.tensor(remaining, dtype=torch.int32, device=dev)
-    st0 = state
+    planes, tag = state.planes, state.tag
     ys = ([], [], [])
     for _ in range(rounds):
-        planes, tag, matched = mk_ops.run_group(st0.planes, st0.tag, dg)
-        executed = mk_ref.executed_ops(dg.cond, dg.enabled, matched)
-        delta = mk_ref.counter_delta(dg.op, matched, executed)
+        new_planes, new_tag, matched = mk_ops.run_group(planes, tag, dg)
         count = matched[count_idx]
-        if readout:
-            delta = delta + read_unit * count
-        st = E.APState(planes, tag, st0.counters + delta)
         new_rem = rem - count
-        st_out = E.select_state(done, st0, st)
-        rem_out = torch.where(done, rem, new_rem)
-        done_out = done | (count == 0) | (new_rem <= 0)
-        for y, v in zip(ys, (matched, tag, done)):
+        for y, v in zip(ys, (matched, new_tag, done)):
             y.append(v)
-        st0, done, rem = st_out, done_out, rem_out
+        planes = torch.where(done, planes, new_planes)
+        tag = torch.where(done, tag, new_tag)
+        rem = torch.where(done, rem, new_rem)
+        done = done | (count == 0) | (new_rem <= 0)
     nl = state.tag.shape[0]
-    return st0, (_stack(ys[0], (dg.n_ops,), torch.int32, dev),
-                 _stack(ys[1], (nl,), torch.int32, dev),
-                 _stack(ys[2], (), torch.bool, dev))
+    ys = (_stack(ys[0], (dg.n_ops,), torch.int32, dev),
+          _stack(ys[1], (nl,), torch.int32, dev),
+          _stack(ys[2], (), torch.bool, dev))
+    matched, _, was_done = ys
+    delta = mk_ref.counter_delta(
+        dg.op, matched, mk_ref.executed_ops(dg.cond, dg.enabled, matched))
+    if readout:
+        delta = delta + E._unit(dev, 1, 0, 0, 1, 0) * matched[:, count_idx,
+                                                              None]
+    counters = state.counters + (delta * (~was_done)[:, None]).sum(
+        0, dtype=torch.int64).to(torch.int32)
+    return E.APState(planes, tag, counters), ys
 
 
 def min_extract_rounds_mk(eng: APEngine, val: Field, active: Field,

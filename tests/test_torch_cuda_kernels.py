@@ -121,6 +121,46 @@ def test_smoother_kernel_equals_plain(cuda, shape, color):
         rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("inputs", ["pack", "dict", "level", "scalar"])
+@pytest.mark.parametrize("shape", [(1, 9, 7), (2, 5, 6), (7, 35, 37),
+                                   (16, 12, 12), (3, 7, 18, 18),
+                                   (2, 16, 5, 9), (4, 1, 1, 3)])
+def test_smoother_layers_and_inputs_equal_plain(cuda, shape, inputs):
+    """L of 1, 2, 7 and 16 (each its own template instance), odd NX and
+    NY, batched; the fields as a pack, a plain dict or a checked multigrid
+    level, and a scalar d_extra: bit for bit, both colours."""
+    T, b, F, d = _smooth_case(shape, sum(shape) + 3, cuda)
+    if inputs == "pack":
+        F = st_ops.pack_fields(F)
+    elif inputs == "level":
+        F, d = mg_ops.checked_level(F, d)
+    elif inputs == "scalar":
+        d = 0.0125
+    want_d = torch.full_like(T, d) if inputs == "scalar" else d
+    for color in (0, 1):
+        before = mg_ops.rb_line_sweep.launches
+        got = mg_ops.rb_line_sweep(T, b, F, d, color)
+        assert mg_ops.rb_line_sweep.launches == before + 1
+        torch.testing.assert_close(
+            got, mg_ops.rb_line_sweep_plain(T, b, F, want_d, color),
+            rtol=0, atol=0)
+
+
+def test_smoother_level_is_checked_once_and_only_for_its_own_extra(cuda):
+    """A checked level skips the field and d_extra checks for its own
+    d_extra only; another tensor beside the same pack is checked."""
+    T, b, F, d = _smooth_case((3, 8, 8), 5, cuda)
+    pack, dl = mg_ops.checked_level(F, d)
+    assert pack is not F and dl.data_ptr() == d.data_ptr()
+    torch.testing.assert_close(mg_ops.rb_line_sweep(T, b, pack, dl, 1),
+                               mg_ops.rb_line_sweep_plain(T, b, F, d, 1),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="d_extra"):
+        mg_ops.rb_line_sweep(T, b, pack, d[:, :4].clone(), 1)
+    with pytest.raises(ValueError):
+        mg_ops.rb_line_sweep(T, b[:, :4], pack, dl, 1)
+
+
 def test_smoother_kernel_rejects_what_it_does_not_take(cuda):
     T, b, F, d = _smooth_case((3, 8, 8), 0, cuda)
     with pytest.raises(ValueError):
@@ -345,6 +385,92 @@ def test_megakernel_equals_plain(cuda, n_lanes, kind, P):
     assert torch.equal(got_m, want_m)
     if kind == "disabled":
         assert torch.equal(got_p, planes) and int(got_m.abs().sum()) == 0
+
+
+def _wide_group(rng, n_bits, P):
+    """Random conditional ops of every kind with one to six compare and
+    write terms, so an op's record can hold two groups of four."""
+    ops = []
+    for p in range(P):
+        nc, nw = int(rng.integers(1, 7)), int(rng.integers(1, 7))
+        ops.append((int(rng.integers(0, 4)),
+                    int(rng.integers(0, min(p, mk_ref.MAX_COND) + 1)),
+                    rng.integers(0, n_bits, nc).tolist(),
+                    rng.integers(0, 2, nc).tolist(),
+                    rng.integers(0, n_bits, nw).tolist(),
+                    rng.integers(0, 2, nw).tolist()))
+    return mk_ref.OpGroup.build(ops)
+
+
+#: conditional groups on both sides of every cluster-size and path
+#: boundary of ops.plan_conditional: (n_bits, n_lanes) -> (path, cluster)
+CLUSTER_SHAPES = {
+    (10, 1024): ("shared", 1), (10, 1025): ("shared", 2),
+    (10, 2048): ("shared", 2), (10, 2049): ("shared", 4),
+    (10, 4097): ("shared", 8), (10, 8193): ("shared", 16),
+    (10, 65536): ("shared", 16), (10, 65537): ("global", 16),
+    (200, 32768): ("global", 16), (2000, 33): ("global", 1),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(CLUSTER_SHAPES))
+def test_megakernel_cluster_paths_equal_plain(cuda, shape):
+    """Each cluster size and both paths, chosen by shape: random
+    conditional groups with up to six compare and write terms (two record
+    groups), lookbacks 1-4 and disabled ops, bit for bit."""
+    n_bits, n_lanes = shape
+    rng = np.random.default_rng(n_bits * 100003 + n_lanes)
+    group = _wide_group(rng, n_bits, 24)
+    lo, hi = int(min(group.cmp_cols.min(), group.w_cols.min())), \
+        int(max(group.cmp_cols.max(), group.w_cols.max()))
+    plan = mk_ops.plan_conditional(n_lanes, hi - lo + 1, group.n_ops,
+                                   group.cmp_cols.shape[1],
+                                   group.w_cols.shape[1])
+    assert (plan.path, plan.cluster) == CLUSTER_SHAPES[shape]
+    planes = interop.planes_from_reference(
+        rng.integers(0, 2 ** 32, (n_bits, n_lanes),
+                     dtype=np.uint64).astype(np.uint32), cuda)
+    tag = interop.planes_from_reference(
+        rng.integers(0, 2 ** 32, (1, n_lanes),
+                     dtype=np.uint64).astype(np.uint32), cuda)[0]
+    enabled = rng.integers(0, 4, group.n_ops) > 0
+    before = mk_ops.run_group.launches
+    got = mk_ops.run_group(planes, tag, group, enabled)
+    assert mk_ops.run_group.launches == before + 1
+    want = mk_ref.group_scan_plain(planes, tag, group.tables(), enabled)
+    for a, b in zip(got, want[:3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_lanes", [32, 1025, 32768])
+def test_megakernel_sort_round_with_nothing_to_match(cuda, n_lanes):
+    """A sort round with no active word: every probe and the tie group
+    count 0, every conditional op is skipped, and matched is written as
+    zeros where those ops did not run (the wrapper fills nothing)."""
+    from repro_torch.workloads import _device
+    val, active, cand = Field(0, 8), Field(8, 1), Field(9, 1)
+    group = _device._min_extract_group(isa.copy(cand, active), val, active,
+                                       cand, readout=False)
+    rng = np.random.default_rng(n_lanes)
+    planes = interop.planes_from_reference(
+        rng.integers(0, 2 ** 32, (10, n_lanes),
+                     dtype=np.uint64).astype(np.uint32), cuda)
+    planes[8] = 0
+    tag = torch.full((n_lanes,), -1, dtype=torch.int32, device=cuda)
+    dg = mk_ops.device_group(group, cuda)
+    got = mk_ops.run_group(planes, tag, dg)
+    want = mk_ref.group_scan_plain(planes, tag, group.tables())
+    for a, b in zip(got, want[:3]):
+        assert torch.equal(a, b)
+    assert int(got[2][2:].abs().sum()) == 0   # past the two copy passes
+    assert int(want[3].sum()) == 2 + 8 + 1    # copies, probes, tie group
+
+
+def test_megakernel_cluster_probe(cuda):
+    t = mk_ops.cluster_probe(cuda, iters=256)
+    assert 10 < t["barrier_cycles"] < 20000
+    assert 10 < t["dsmem_cycles"] < 20000
+    assert 10 < t["op_cycles"] < 2000 and 0.5 < t["sm_ghz"] < 3.0
 
 
 def test_megakernel_rejects_what_it_does_not_take(cuda):

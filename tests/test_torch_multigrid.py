@@ -165,6 +165,92 @@ def test_rb_line_sweep_batched_uses_global_parity_per_case():
         _close(got[i], ref, rtol=1e-5, atol_rel=1e-5)
 
 
+@pytest.mark.parametrize("shape", [(3, 6, 8), (2, 3, 7, 9), (1, 1, 1)])
+def test_split_by_colour_holds_each_colours_swept_cells(shape):
+    """The smoother kernel's coefficients: for colour c, array k at (y, i)
+    is field k (then d_extra) at (y, 2i + ((y + c) & 1)), exactly the
+    cells a half-sweep of colour c solves, each once."""
+    rng = np.random.default_rng(sum(shape))
+    F = tsmooth.pack_fields({k: torch.from_numpy(
+        rng.uniform(0, 1, shape).astype(np.float32))
+        for k in tsmooth.FIELD_KEYS})
+    d = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+    split = tsmooth.split_by_colour(F, d)
+    ny, nx = shape[-2:]
+    assert split.shape == (2, 8, *shape[:-1], (nx + 1) // 2)
+    arrays = [F[k] for k in tsmooth.FIELD_KEYS] + [d]
+    par = tsmooth.parity(ny, nx).numpy()
+    for c in (0, 1):
+        seen = np.zeros((ny, nx), int)
+        for y in range(ny):
+            for i in range((nx + 1) // 2):
+                x = 2 * i + ((y + c) & 1)
+                if x >= nx:
+                    continue
+                seen[y, x] += 1
+                for k, a in enumerate(arrays):
+                    assert torch.equal(split[c, k, ..., y, i], a[..., y, x])
+        np.testing.assert_array_equal(seen, par == c)
+    # a scalar d_extra broadcasts into its array
+    assert bool((tsmooth.split_by_colour(F, torch.tensor(0.25))[:, 7]
+                 == 0.25).all())
+
+
+def test_levels_are_checked_once_beside_their_own_extra():
+    """Every level of build_levels carries its d_extra and its colour
+    split, and is a new pack over the fields' data (the caller's pack is
+    left as it is)."""
+    _, Fn, Ft = _fields(n=16, margin=4)
+    pack = tsmooth.pack_fields(Ft)
+    levels = tmg.build_levels(pack, 0.5)
+    assert levels[0][0] is not pack and levels[0][0].data is pack.data
+    assert "smoother_extra" not in pack.__dict__
+    for F, d in levels:
+        assert F.smoother_extra is d
+        torch.testing.assert_close(
+            F.smoother_coefficients, tsmooth.thomas_coefficients(F, d),
+            rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(7, 8, 6), (2, 3, 5, 9), (1, 4, 4)])
+def test_thomas_coefficients_are_line_solves_own(shape):
+    """The smoother kernel's precomputed pivots and forward coefficients
+    equal, bit for bit, those the plain line solve forms every sweep, at
+    each colour's swept cells; the four lateral fields and lo = -gz_up
+    are the fields'."""
+    rng = np.random.default_rng(sum(shape) + 7)
+    F = {k: torch.from_numpy(rng.uniform(0, 1e-2, shape).astype(np.float32))
+         for k in tsmooth.FIELD_KEYS}
+    F["gz_up"][..., :1, :, :] = 0.0
+    F["gz_dn"][..., -1:, :, :] = 0.0
+    for k in F:                         # void columns: the diagonal guard
+        F[k][..., :, :1, :] = 0.0
+    d = torch.from_numpy(rng.uniform(0, 5e-2, shape).astype(np.float32))
+    d[..., :, :1, :] = 0.0
+    F = tsmooth.pack_fields(F)
+    coef = tsmooth.thomas_coefficients(F, d)
+    # the plain recursion, written out on the full grid
+    diag = tsmooth.diagonal(F, d)
+    diag = torch.where(diag > 0, diag, 1.0)
+    lo, up = -F["gz_up"], -F["gz_dn"]
+    den, cp = [diag.select(-3, 0)], [up.select(-3, 0) / diag.select(-3, 0)]
+    for l in range(1, shape[-3]):
+        dn = diag.select(-3, l) - lo.select(-3, l) * cp[-1]
+        den.append(torch.where(dn.abs() > 0, dn, 1.0))
+        cp.append(up.select(-3, l) / den[-1])
+    full = [F["gx_lf"], F["gx_rt"], F["gy_up"], F["gy_dn"], lo,
+            torch.stack(den, -3), torch.stack(cp, -3)]
+    ny, nx = shape[-2:]
+    for c in (0, 1):
+        for y in range(ny):
+            for i in range((nx + 1) // 2):
+                x = 2 * i + ((y + c) & 1)
+                if x < nx:
+                    for k, a in enumerate(full):
+                        assert torch.equal(coef[c, k, ..., y, i],
+                                           a[..., y, x])
+
+
 def test_rb_line_sweep_rejects_bad_color():
     _, Fn, Ft = _fields(n=8, margin=2)
     T = torch.zeros(Fn["g_pkg"].shape)
