@@ -37,7 +37,10 @@ these phases, each printing one line with its result and seconds:
    ``d_extra = cap3/dt``, and its 18^2 level) and at the 256^2 solver grid
    (7 x 384 x 384), timed as in phase 2;
 8. the uniform-per-layer stencil kernel against its plain version, bit for
-   bit, at the paper stack's AP domain (5 x 384 x 384), timed the same way;
+   bit, from its pack of per-layer vectors and from four loose vectors, at
+   the paper stack's AP domain (5 x 384 x 384), a batch of three of it, one
+   layer, twenty layers and two widths that are not a multiple of 4, each
+   timed the same way;
 9. the steady solver comparison at 256^2 (7 x 384 x 384,
    ``bench_thermal.py``'s shoot-out): pcg, mg and mgcg — iterations,
    seconds, maximum temperature and true relative residual; mg and mgcg
@@ -59,18 +62,22 @@ these phases, each printing one line with its result and seconds:
 13. the op-group megakernel against its plain version, bit for bit
     (planes, tag, matched): a sort round (conditional, 28 ops) at 32768
     and at 32 lanes, a bucketed multiply schedule as an all-PASS group at
-    32768 lanes, and spmv's 512-op probe batch with its padded probes
-    disabled; timed with CUDA events beside the bound and the plain time;
-    first the cluster probe (16 CTAs of 512 threads: the round trip of a
-    cluster barrier, a store into a peer's shared memory until its load
-    sees it, one op's chain in shared memory, the SM clock), and for the
-    conditional groups their latency bound beside the byte bound;
+    32768 lanes, spmv's 512-op probe batch with its padded probes
+    disabled, and two random unconditional groups, 64 ops over 2048 rows
+    at 1024 lanes (the device-memory path) and 2048 ops at 32768 lanes
+    (more than one chunk of records); each with its launch plan, timed
+    with CUDA events beside the bound and the plain time; first the
+    cluster probe (16 CTAs of 512 threads: the round trip of a cluster
+    barrier, a store into a peer's shared memory until its load sees it,
+    one op's chain in shared memory, the SM clock), and for every group
+    its latency bound beside the byte bound;
 14. the suite trace capture, ``registry.trace_counters(w, 1024, mode=m)``
     for sort, knn, hist and spmv in the eager, device and megakernel modes
     on the card and in device mode on the host: answers exact, counters
     and trace events identical across the four runs, cycles and energy
     equal to the JAX reference's; the megakernel launched in megakernel
-    mode only, the pass-schedule kernel in device mode;
+    mode only (hist's one probe batch and spmv's seven as unconditional
+    groups), the pass-schedule kernel in device mode;
 15. the paper-size sort, ``ap_sort`` of 2^20 random bytes in megakernel
     mode: sorted exactly, cycles and energy equal to the JAX reference's;
     then sort at n = 2048 in device and megakernel mode, printed;
@@ -122,8 +129,10 @@ entry points (``forward``, ``prefill``, ``decode_step``) and phase 17's
 comparisons run their float32 matrix products without TF32.
 
 The line before the last is a JSON object of per-kernel measurements (the
-megakernel's row holds the sort round at 32768 lanes; its launches are
-those of phase 14's megakernel-mode captures; the flash kernel's row
+megakernel's row holds the sort round at 32768 lanes, and the multiply
+and spmv groups' times under ``unconditional``; its launches are those of
+phase 14's megakernel-mode captures, with those of unconditional groups
+by path; the flash kernel's row
 holds phase 17's serve prefill shape at B = 4, its launches are phase
 18's prefill and its ``device_ms`` the profiled prefill's time a launch
 at that shape); the last line is ``{"ok": true, "device": {...}}``.  Any
@@ -195,6 +204,9 @@ REFERENCE_SUITE_STACK = {
     ("spmv", "simd"): (142.4915, "BLOCKED", True),
 }
 SUITE = ("sort", "knn", "hist", "spmv")
+#: launches of unconditional op groups in a megakernel-mode capture at
+#: 1024 elements (phase 14): hist's one probe batch, spmv's seven
+SUITE_UNCONDITIONAL = {"hist": 1, "spmv": 7}
 #: Cases whose DRAM peak is held to a wider bound than PEAK_TOL_C, and
 #: why (ROADMAP Queue 3, item 5): sort/ap passes through the DTM ramp on
 #: its last six intervals, where the sampled ramp multiplies float32
@@ -565,12 +577,21 @@ def _kernel_wrappers() -> dict:
 
 
 def reset_launches() -> None:
-    for fn in _kernel_wrappers().values():
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    wrappers["ap_megakernel"].unconditional_launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+    """Each kernel's launches, and the megakernel's launches of
+    unconditional groups (``ap_megakernel_unconditional``, also counted
+    in ``ap_megakernel``)."""
+    wrappers = _kernel_wrappers()
+    out = {name: fn.launches for name, fn in wrappers.items()}
+    out["ap_megakernel_unconditional"] = \
+        wrappers["ap_megakernel"].unconditional_launches
+    return out
 
 
 def check_launched(launches: dict, names, what: str) -> None:
@@ -792,11 +813,12 @@ def profile(results):
                      mg_ops.rb_line_sweep(T, b, F, d, 0)))
     T, vecs = _uniform_case()
     jobs.append(("uniform_large", "stencil_uniform", 20,
-                 lambda: st_ops.apply_operator_vectors(T, *vecs)))
+                 lambda: st_ops.apply_operator_vectors(T, vecs)))
     mk_cases = _megakernel_cases()
-    for label, name in (("sort_round_32768", "group_cluster"),
-                        ("sort_round_32", "group_cluster"),
-                        ("mul_pass_32768", "group_tiled")):
+    for label, name in (("sort_round_32768", "op_group"),
+                        ("sort_round_32", "op_group"),
+                        ("mul_pass_32768", "op_group"),
+                        ("spmv_probes_32", "op_group")):
         group, planes, tag, en = mk_cases[label]
         dg = mk_ops.device_group(group, "cuda")
         jobs.append((f"mk_{label}", name, 20,
@@ -913,28 +935,54 @@ def check_smoother(results):
             f"{b_ms * 1e3:.2f} us ({b_by})")
 
 
+#: phase 8's further uniform-stencil shapes: a batch of the transient's
+#: domain, one layer, more layers than the paper stack has, and widths that
+#: are not a multiple of 4 (a thread a cell instead of four)
+UNIFORM_SHAPES = {"batched": (3, 5, 384, 384), "one_layer": (1, 384, 384),
+                  "twenty_layers": (20, 96, 96), "odd_width": (5, 384, 383),
+                  "odd_batched": (2, 3, 37, 41)}
+
+
 @phase("8 uniform stencil kernel vs plain")
 def check_uniform(results):
+    import numpy as np
     import torch
     from repro_torch.kernels.thermal_stencil import ops
     T, vecs = _uniform_case()
-    got = ops.apply_operator_vectors(T, *vecs)
-    want = ops.apply_operator_plain(T, *vecs)
-    torch.cuda.synchronize()
-    check(torch.isfinite(got).all().item(), "uniform stencil not finite")
-    err = float((got - want).abs().max())
-    check(torch.equal(got, want), f"uniform stencil kernel differs from "
-          f"plain at {tuple(T.shape)}: max |diff| = {err}")
-    cells, L = T.numel(), T.shape[0]
-    b_ms, b_by = bound_ms(8.0 * cells + 16.0 * L, 12.0 * cells)
-    ms = cuda_ms(lambda: ops.apply_operator_vectors(T, *vecs), 200)
-    plain = cuda_ms(lambda: ops.apply_operator_plain(T, *vecs), 20)
-    results.setdefault("uniform_large", {}).update(
-        shape=list(T.shape), max_abs_err=err, ms=ms, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    say(f"  apply_operator {tuple(T.shape)}: exact; kernel {ms * 1e3:.2f} "
-        f"us, plain {plain * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
-        f"({b_by})")
+    cases = {"uniform_large": (T, vecs)}
+    for label, shape in UNIFORM_SHAPES.items():
+        rng = np.random.default_rng(sum(shape))
+        L = shape[-3]
+        g = rng.uniform(0.0, 1e-1, (4, L)).astype(np.float32)
+        g[1, 0] = g[2, -1] = 0.0     # no face above the top or below the base
+        cases[f"uniform_{label}"] = (
+            torch.from_numpy(rng.normal(50.0, 20.0, shape)
+                             .astype(np.float32)).cuda(),
+            ops.pack_vectors(tuple(torch.from_numpy(v).cuda() for v in g)))
+    for label, (Tc, V) in cases.items():
+        got = ops.apply_operator_vectors(Tc, V)
+        loose = ops.apply_operator_vectors(Tc, *V)
+        want = ops.apply_operator_plain(Tc, *V)
+        torch.cuda.synchronize()
+        check(torch.isfinite(got).all().item(),
+              "uniform stencil not finite")
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want) and torch.equal(loose, want),
+              f"uniform stencil kernel differs from plain at "
+              f"{tuple(Tc.shape)}: max |diff| = {err}")
+        cells, L = Tc.numel(), Tc.shape[-3]
+        b_ms, b_by = bound_ms(8.0 * cells + 16.0 * L, 12.0 * cells)
+        big = cells >= 10 ** 6
+        ms = cuda_ms(lambda: ops.apply_operator_vectors(Tc, V),
+                     50 if big else 200)
+        plain = cuda_ms(lambda: ops.apply_operator_plain(Tc, *V),
+                        5 if big else 20)
+        results.setdefault(label, {}).update(
+            shape=list(Tc.shape), max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        say(f"  apply_operator {tuple(Tc.shape)}: exact (pack and four "
+            f"loose vectors); kernel {ms * 1e3:.2f} us, plain "
+            f"{plain * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by})")
 
 
 @phase("9 steady solver comparison")
@@ -1101,7 +1149,12 @@ def _megakernel_cases() -> dict:
     * the m = 6 multiply schedule bucketed as ``APEngine.run`` buckets it,
       as an all-PASS group (unconditional) at 32768 lanes;
     * spmv's probe batch at 1024 nonzeros: 32 rows x 12 product bits,
-      bucketed to 512 CMP ops of 8 columns, the padded 128 disabled.
+      bucketed to 512 CMP ops of 8 columns, the padded 128 disabled;
+    * two unconditional groups of random PASS, CMP, CMP_TAG and WRITE ops
+      (up to six compare and four write terms, a quarter disabled) that
+      stress the plan: 64 ops over 2048 rows at 1024 lanes, whose tile no
+      CTA can hold (the device-memory path), and 2048 ops over 10 rows at
+      32768 lanes, more than one chunk of records.
     """
     if _MK_CASES:
         return _MK_CASES
@@ -1122,13 +1175,31 @@ def _megakernel_cases() -> dict:
          for b in range(2 * m)],
         [[(i >> rb) & 1 for rb in range(r_w)] + [1] for i in range(n_rows)
          for _ in range(2 * m)])
+    rng = np.random.default_rng(13)
+
+    def random_ops(P: int, n_bits: int):
+        ops_ = []
+        for _ in range(P):
+            nc, nw = int(rng.integers(1, 7)), int(rng.integers(1, 5))
+            ops_.append((int(rng.integers(0, 4)), 0,
+                         rng.integers(0, n_bits, nc).tolist(),
+                         rng.integers(0, 2, nc).tolist(),
+                         rng.integers(0, n_bits, nw).tolist(),
+                         rng.integers(0, 2, nw).tolist()))
+        return OpGroup.build(ops_)
+
+    wide, many = random_ops(64, 2048), random_ops(2048, 10)
+    for g, n_bits in ((wide, 2048), (many, 10)):       # span every row
+        g.cmp_cols[0, 0], g.w_cols[-1, 0] = 0, n_bits - 1
     for label, group, n_bits, n_lanes, enabled in (
             ("sort_round_32768", sort_round, 10, 32768, None),
             ("sort_round_32", sort_round, 10, 32, None),
             ("mul_pass_32768", OpGroup.from_schedule(*tables), 32, 32768,
              None),
             ("spmv_probes_32", OpGroup.probes(cols, keys), 30, 32,
-             np.arange(cols.shape[0]) < n_probes)):
+             np.arange(cols.shape[0]) < n_probes),
+            ("rows_2048_1024", wide, 2048, 1024, rng.random(64) < 0.75),
+            ("ops_2048_32768", many, 10, 32768, rng.random(2048) < 0.75)):
         rng = np.random.default_rng(n_bits + n_lanes)
         words = rng.integers(-2 ** 31, 2 ** 31, (n_bits + 1, n_lanes),
                              dtype=np.int64).astype(np.int32)
@@ -1166,23 +1237,33 @@ def _group_traffic(group, executed, n_lanes: int):
     return n_bytes, n_ops, streamed
 
 
-def _mk_latency_bound_ms(probe: dict, group, executed, n_lanes: int,
-                         n_bytes: float) -> tuple[float, int]:
-    """The conditional kernel's latency bound (``ap_megakernel.cu``'s
-    note): E executed ops of one chain each; with more than one CTA, B
-    executed ops branched on, each a store into a peer's shared memory,
-    and 1 + 2 cluster barriers a chunk of ops; at the measured cycles and
-    SM clock, plus the bytes at the HBM rate -> (ms, B)."""
+def _mk_plan(group, n_lanes: int):
+    """The launch ``ops.run_group`` plans for ``group`` over ``n_lanes``."""
     import numpy as np
     from repro_torch.kernels.ap_megakernel import ops
     P, kc = group.cmp_cols.shape
     cols = np.concatenate([group.cmp_cols.ravel(), group.w_cols.ravel()])
-    plan = ops.plan_conditional(n_lanes, int(cols.max() - cols.min()) + 1,
-                                P, kc, group.w_cols.shape[1])
+    plan = ops.plan_conditional if group.conditional else \
+        ops.plan_unconditional
+    return plan(n_lanes, int(cols.max() - cols.min()) + 1, P, kc,
+                group.w_cols.shape[1])
+
+
+def _mk_latency_bound_ms(probe: dict, group, executed, n_lanes: int,
+                         n_bytes: float) -> tuple[float, int]:
+    """The megakernel's latency bound (``ap_megakernel.cu``'s note): E
+    executed ops of one chain each; for a conditional group of more than
+    one CTA also B executed ops branched on, each a store into a peer's
+    shared memory, and 1 + 2 cluster barriers a chunk of ops (an
+    unconditional group's CTAs never wait for each other: B = N = 0); at
+    the measured cycles and SM clock, plus the bytes at the HBM rate ->
+    (ms, B)."""
+    from repro_torch.kernels.ap_megakernel import ops
+    plan = _mk_plan(group, n_lanes)
     n_ex, n_br, n_bar = int(executed.sum()), 0, 0
-    if plan.cluster > 1:
+    if group.conditional and plan.cluster > 1:
         n_br = int((executed & ops.branched_on(group.cond)).sum())
-        n_bar = 1 + 2 * -(-P // plan.chunk)
+        n_bar = 1 + 2 * -(-group.n_ops // plan.chunk)
     cycles = (n_ex * probe["op_cycles"] + n_br * probe["dsmem_cycles"]
               + n_bar * probe["barrier_cycles"])
     return (cycles / (probe["sm_ghz"] * 1e9) * 1e3
@@ -1202,7 +1283,8 @@ def check_megakernel(results):
         f"{probe['op_cycles']:.1f} cycles, SM clock "
         f"{probe['sm_ghz']:.3f} GHz")
     reps = {"sort_round_32768": 50, "sort_round_32": 200,
-            "mul_pass_32768": 50, "spmv_probes_32": 100}
+            "mul_pass_32768": 50, "spmv_probes_32": 100,
+            "rows_2048_1024": 20, "ops_2048_32768": 10}
     for label, (group, planes, tag, en) in _megakernel_cases().items():
         dg = ops.device_group(group, "cuda")
         got_p, got_t, got_m = ops.run_group(planes, tag, dg, en)
@@ -1217,10 +1299,9 @@ def check_megakernel(results):
         ex = executed.cpu().numpy()
         n_bytes, n_ops, streamed = _group_traffic(group, ex, n_lanes)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        lat_ms, n_br = None, 0
-        if group.conditional:
-            lat_ms, n_br = _mk_latency_bound_ms(probe, group, ex, n_lanes,
-                                                n_bytes)
+        lat_ms, n_br = _mk_latency_bound_ms(probe, group, ex, n_lanes,
+                                            n_bytes)
+        plan = _mk_plan(group, n_lanes)
         ms = cuda_ms(lambda: ops.run_group(planes, tag, dg, en),
                      reps[label])
         plain = cuda_ms(lambda: ref.group_scan_plain(
@@ -1229,18 +1310,23 @@ def check_megakernel(results):
         kw = group.w_cols.shape[1]
         results.setdefault(f"mk_{label}", {}).update(
             n_lanes=n_lanes, ops=P, executed=int(executed.sum()), kc=kc,
-            kw=kw, conditional=group.conditional, max_abs_err=0,
+            kw=kw, conditional=group.conditional, plan=plan.__dict__,
+            max_abs_err=0,
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
             streamed_bound_ms=streamed / HBM_BYTES_PER_S * 1e3,
             latency_bound_ms=lat_ms, branched_executed=n_br,
             library_ms=None)
-        lat = "" if lat_ms is None else \
-            f", latency bound {lat_ms * 1e3:.2f} us ({n_br} exchanges)"
+        kind = (f"conditional, a cluster of {plan.cluster}"
+                if group.conditional
+                else f"unconditional, {plan.ctas} CTAs")
         say(f"  run_group {label}: {P} ops ({int(executed.sum())} run, "
-            f"Kc={kc}, Kw={kw}, {'conditional' if group.conditional else 'tiled'}"
-            f"): bit-identical; kernel {ms * 1e3:.2f} us, plain "
-            f"{plain * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}){lat}, "
-            f"per-op streamed {streamed / HBM_BYTES_PER_S * 1e6:.2f} us")
+            f"Kc={kc}, Kw={kw}; {kind} of {plan.threads} threads, "
+            f"{plan.path} path, {plan.lpt} lanes a thread, "
+            f"{-(-P // plan.chunk)} chunk(s)): bit-identical; kernel "
+            f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}), latency bound "
+            f"{lat_ms * 1e3:.2f} us ({n_br} exchanges), per-op streamed "
+            f"{streamed / HBM_BYTES_PER_S * 1e6:.2f} us")
 
 
 _SUITE_ENTRY = {"sort": ("sort", "ap_sort"), "knn": ("knn", "ap_knn"),
@@ -1267,7 +1353,7 @@ def suite_capture(results):
     from repro_torch.workloads import registry
     runs = (("eager", "cuda"), ("device", "cuda"), ("megakernel", "cuda"),
             ("device", "cpu"))
-    rows, mk_launches = {}, 0
+    rows, mk_launches, unconditional = {}, 0, {}
     for w in SUITE:
         mod = importlib.import_module(f"repro_torch.workloads."
                                       f"{_SUITE_ENTRY[w][0]}")
@@ -1306,14 +1392,23 @@ def suite_capture(results):
                 check_launched(launches, ("ap_match",), f"{w} {run}")
             if mode == "megakernel":
                 mk_launches += mk
+            if mode == "megakernel" and dev == "cuda":
+                unc = launches["ap_megakernel_unconditional"]
+                unconditional[w] = unc
+                check(unc == SUITE_UNCONDITIONAL.get(w, unc),
+                      f"{w} {run}: {unc} unconditional-group launches, "
+                      f"expected {SUITE_UNCONDITIONAL.get(w)}")
             rows[f"{w}/{run}"] = dict(seconds=sec, launches=launches)
+        mk_row = rows[f"{w}/megakernel/cuda"]["launches"]
         say(f"  {w}: exact, {first['cycles']} cycles, energy "
             f"{first['energy']!r} as JAX in every run; " + ", ".join(
                 f"{m}/{d} {rows[f'{w}/{m}/{d}']['seconds']:.2f} s"
                 for m, d in runs)
-            + f"; megakernel launches {rows[f'{w}/megakernel/cuda']['launches']['ap_megakernel']}")
+            + f"; megakernel launches {mk_row['ap_megakernel']} "
+            f"({unconditional[w]} of unconditional groups)")
     results["suite_capture"] = dict(runs=rows,
-                                    megakernel_launches=mk_launches)
+                                    megakernel_launches=mk_launches,
+                                    unconditional_launches=unconditional)
     return mk_launches
 
 
@@ -1777,7 +1872,20 @@ def main() -> int:
                         "suite_capture_megakernel_mode": mk_launches,
                         "paper_sort_2^20": sort_launches["ap_megakernel"],
                         "suite_stack_path":
-                            suite_launches["ap_megakernel"]}),
+                            suite_launches["ap_megakernel"]},
+                    unconditional_launches_by_path={
+                        "suite_capture_megakernel_mode":
+                            results["suite_capture"][
+                                "unconditional_launches"],
+                        "paper_sort_2^20":
+                            sort_launches["ap_megakernel_unconditional"],
+                        "suite_stack_path":
+                            suite_launches["ap_megakernel_unconditional"]},
+                    unconditional={
+                        k: {f: results[f"mk_{k}"][f] for f in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "latency_bound_ms")}
+                        for k in ("mul_pass_32768", "spmv_probes_32")}),
         _kernel_row("flash_attention.mha",
                     f"{src}/flash_attention/csrc/flash_attention.cu",
                     f"{ref}/flash_attention/kernel.py:85",

@@ -12,13 +12,14 @@ timed), 3 (the AP pass-schedule kernel, the same), 5 (the trio's pcg
 stack path: capture and replay seconds), the profiled 4-interval pcg
 replay window of phase 6 three times (wall time and device-busy share),
 7 (the smoother kernel against its plain version at its three shapes,
-timed), 11 (the mg stack path), 13 (the op-group megakernel, timed at
-each case), 15 (the 2^20-byte sort in megakernel mode) and 16 (the
-suite stack path).  Give the roots as
-A B B A to see the spread between two runs of one tree.  It prints one
-line of times per run and the card's name and power limit, and writes
-every run's results to ``chiprun_out/compare_phases.json``.  It needs a
-CUDA card.
+timed), 8 (the uniform stencil, the same), 11 (the mg stack path), 12
+(the legacy transients, pcg and mg), 13 (the op-group megakernel, timed
+at each case), 14 (the suite's trace captures in every mode), 15 (the
+2^20-byte sort in megakernel mode) and 16 (the suite stack path).  Give
+the roots as A B B A to see the spread between two runs of one tree.  It
+prints one line of times per run and the card's name and power limit,
+and writes every run's results to ``chiprun_out/compare_phases.json``.
+It needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -46,8 +47,11 @@ cs.check_ap(results)
 cs.main_path(results)
 results["pcg_windows"] = [cs._replay_window("pcg") for _ in range(3)]
 cs.check_smoother(results)
+cs.check_uniform(results)
 cs.mg_path(results)
+cs.legacy_transient(results)
 cs.check_megakernel(results)
+cs.suite_capture(results)
 cs.paper_sort(results)
 cs.suite_stack(results)
 print("RESULT " + json.dumps(results, default=str))
@@ -65,19 +69,33 @@ _COLUMNS = (("stencil 6x7x36x36 us", "stencil_main", "ms", 1e3),
             ("smooth 6x7x36x36 us", "smooth_replay", "ms", 1e3),
             ("smooth 6x7x18x18 us", "smooth_level18", "ms", 1e3),
             ("smooth 7x384x384 us", "smooth_large", "ms", 1e3),
+            ("uniform 5x384x384 us", "uniform_large", "ms", 1e3),
             ("mg capture s", "mg_path", "capture_s", 1.0),
             ("mg replay s", "mg_path", "replay_s", 1.0),
+            ("transient pcg s", ("legacy_transient", "pcg"), "seconds", 1.0),
+            ("transient mg s", ("legacy_transient", "mg"), "seconds", 1.0),
             ("sort round 32768 us", "mk_sort_round_32768", "ms", 1e3),
             ("sort round 32 us", "mk_sort_round_32", "ms", 1e3),
+            ("mul group 32768 us", "mk_mul_pass_32768", "ms", 1e3),
+            ("spmv probes 32 us", "mk_spmv_probes_32", "ms", 1e3),
+            ("hist mk capture s",
+             ("suite_capture", "runs", "hist/megakernel/cuda"), "seconds",
+             1.0),
+            ("spmv mk capture s",
+             ("suite_capture", "runs", "spmv/megakernel/cuda"), "seconds",
+             1.0),
             ("2^20 sort s", "paper_sort", "seconds", 1.0),
             ("suite capture s", "suite_stack", "capture_s", 1.0),
             ("suite replay s", "suite_stack", "replay_s", 1.0))
 
 
-def _cell(result, key: str, field: str, scale: float) -> str:
-    """One summary cell; a list of runs (the replay windows) prints each
-    value, joined by '/'."""
-    got = result[key]
+def _cell(result, key, field: str, scale: float) -> str:
+    """One summary cell (``key`` a result key, or a tuple of nested keys);
+    a list of runs (the replay windows) prints each value, joined by
+    '/'."""
+    got = result
+    for k in (key if isinstance(key, tuple) else (key,)):
+        got = got[k]
     runs = got if isinstance(got, list) else [got]
     return "/".join(f"{r[field] * scale:.2f}" for r in runs)
 

@@ -211,7 +211,8 @@ class Grid:
 # legacy uniform-per-layer stencil (kernels/thermal_stencil, second kernel)
 # ---------------------------------------------------------------------------
 
-#: scalar-or-vector conductances -> the uniform stencil's four [L] vectors
+#: scalar-or-vector conductances -> the uniform stencil's four [L] vectors,
+#: one checked pack built once a solve
 _vectors = stencil_ops.vectors
 
 
@@ -342,7 +343,7 @@ def _cg_solve(b, diag, g_lat, g_vert, g_pkg, tol=1e-8, max_iter=6000):
     """Jacobi-preconditioned conjugate gradient for the legacy uniform
     operator, G T = b."""
     vecs = _vectors(b.shape[-3], g_lat, g_vert, g_pkg, b.device)
-    A = lambda v: stencil_ops.apply_operator_vectors(v, *vecs)
+    A = lambda v: stencil_ops.apply_operator_vectors(v, vecs)
     return pcg(A, 1.0 / diag, b, tol, max_iter)[0]
 
 
@@ -481,7 +482,7 @@ def transient(T0, power, g_lat, g_vert, g_pkg, cap, dt, n_steps: int,
                            device=T0.device)[:, None, None]
     T, peaks = T0, []
     for _ in range(n_steps):
-        dTdt = (power - stencil_ops.apply_operator_vectors(T - t_amb, *vecs)
+        dTdt = (power - stencil_ops.apply_operator_vectors(T - t_amb, vecs)
                 ) / cap3
         peaks.append(T.max())
         T = T + dt * dTdt
@@ -590,7 +591,7 @@ def transient_implicit(T0, power, g_lat, g_vert, g_pkg, cap, dt,
                            if not torch.is_tensor(cap) else cap,
                            dtype=torch.float32, device=dev)
     cap3 = cap3.expand(L)[:, None, None]
-    A = lambda v: stencil_ops.apply_operator_vectors(v, *vecs)
+    A = lambda v: stencil_ops.apply_operator_vectors(v, vecs)
     lhs = lambda v: cap3 / dt * v + theta * A(v)
     Minv = 1.0 / (cap3 / dt + theta * diag)
     # pcg_fixed's dots run per case over the first dim: a batch of one

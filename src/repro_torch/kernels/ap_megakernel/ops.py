@@ -12,10 +12,14 @@ once with :func:`device_group` and passes the result instead of the
 ``OpGroup``: its tables and columns were checked on the host, so a launch
 then checks only the planes and reads nothing back from the card.
 
-A conditional group runs in one thread block cluster, whose size and
-path (the tile in shared or in device memory) :func:`plan_conditional`
-picks by shape; :func:`cluster_probe` measures on the card the latencies
-that bound it.
+One kernel runs both kinds of group from the op records
+:func:`device_group` decodes on the host.  A conditional group runs in one
+thread block cluster, whose size and path (the tile in shared or in
+device memory) :func:`plan_conditional` picks by shape; an unconditional
+group in independent CTAs across the card, as :func:`plan_unconditional`
+picks.  ``run_group.unconditional_launches`` counts the launches of
+unconditional groups (also counted in ``run_group.launches``).
+:func:`cluster_probe` measures on the card the latencies that bound both.
 """
 from __future__ import annotations
 
@@ -48,9 +52,9 @@ class DeviceGroup:
     col_range: tuple[int, int]
     packed: torch.Tensor      # op, cond, enabled, cc, ck, wc, wk
     dims: tuple[int, int, int]    # P, Kc, Kw
-    #: a conditional group's decoded records (:func:`records`), else None
-    records: torch.Tensor | None
-    #: the conditional kernel's host parameters by (n_bits, n_lanes)
+    #: the decoded op records (:func:`records`) the kernel reads
+    records: torch.Tensor
+    #: the kernel's host parameters and plan by (n_bits, n_lanes)
     launch: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
 
@@ -78,10 +82,8 @@ def device_group(group: OpGroup, device) -> DeviceGroup:
         (P, P, P, P * kc, P * kc, P * kw, P * kw))
     cols = np.concatenate([group.cmp_cols.ravel(), group.w_cols.ravel()])
     lo = int(cols.min())
-    recs = None
-    if group.conditional:
-        recs = torch.from_numpy(
-            records(group, lo).view(np.int32).reshape(-1)).to(device)
+    recs = torch.from_numpy(
+        records(group, lo).view(np.int32).reshape(-1)).to(device)
     return DeviceGroup(op, cond, cc.view(P, kc), ck.view(P, kc),
                        wc.view(P, kw), wk.view(P, kw), enabled=en,
                        conditional=group.conditional,
@@ -90,27 +92,36 @@ def device_group(group: OpGroup, device) -> DeviceGroup:
 
 
 def group_sizes(kc: int, kw: int) -> tuple[int, int]:
-    """Terms in one group of a record, (GC, GW): the conditional kernel
-    loads the rows of a group together, 2 or 4 compare terms and 1 or 4
-    write terms (template parameters of ``group_cluster``)."""
-    return (2 if kc <= 2 else 4), (1 if kw == 1 else 4)
+    """Terms in one group of a record, (GC, GW): the kernel loads the rows
+    of a group together, 2 or 4 compare terms and 1, 2 or 4 write terms
+    (template parameters of ``op_group``, which holds up to two compare
+    groups in registers)."""
+    return (2 if kc <= 2 else 4), (kw if kw <= 2 else 4)
 
 
 def records(group: OpGroup, lo: int) -> np.ndarray:
-    """The conditional kernel's decoded op records, uint32 ``[P, rv, 4]``:
-    a flags vector (opcode | cond << 2 | branched on << 6, see
-    :func:`branched_on`), then for every group of GC compare terms a
-    vector of rows counted from ``lo`` and one of broadcast keys (0 - key),
-    then the same for every group of GW write terms.  A group is padded by
-    repeating the op's last term."""
+    """The kernel's decoded op records, uint32 ``[P, rv, 4]``: a head
+    vector (flags = opcode | cond << 2 | branched on << 6, see
+    :func:`branched_on`; then three masks of the opcode, all ones where
+    the op ignores the compare (WRITE), where it ignores the tag (PASS,
+    CMP) and where it writes (PASS, WRITE)), then for every group of GC
+    compare terms a vector of rows counted from ``lo`` and one of
+    broadcast keys (0 - key), then the same for every group of GW write
+    terms.  A group is padded by repeating the op's last term."""
     P, kc = group.cmp_cols.shape
     kw = group.w_cols.shape[1]
     gc, gw = group_sizes(kc, kw)
     n_cg, n_wg = -(-kc // gc), -(-kw // gw)
     rec = np.zeros((P, 1 + 2 * (n_cg + n_wg), 4), np.uint32)
-    rec[:, 0, 0] = (group.op.astype(np.uint32)
+    op = group.op
+    rec[:, 0, 0] = (op.astype(np.uint32)
                     | group.cond.astype(np.uint32) << 2
                     | branched_on(group.cond).astype(np.uint32) << 6)
+    ones = np.uint32(0xFFFFFFFF)
+    rec[:, 0, 1] = np.where(op == ref.OP_WRITE, ones, 0)
+    rec[:, 0, 2] = np.where((op == ref.OP_PASS) | (op == ref.OP_CMP), ones, 0)
+    rec[:, 0, 3] = np.where((op == ref.OP_PASS) | (op == ref.OP_WRITE), ones,
+                            0)
 
     def put(cols, keys, g: int, n: int, at: int):
         idx = np.minimum(np.arange(n * g), cols.shape[1] - 1)
@@ -127,26 +138,36 @@ def records(group: OpGroup, lo: int) -> np.ndarray:
 MAX_CLUSTER = 16
 #: lanes a CTA aims at: fewer lanes run on one CTA, with no cluster step
 LANES_PER_CTA = 1024
-#: most threads a CTA, and lanes a thread on the shared-memory path
+#: most threads a CTA (a conditional group's; an unconditional group's),
+#: and lanes a thread on the shared-memory path
 MAX_THREADS = 1024
+MAX_THREADS_UNCONDITIONAL = 256
 LANES_PER_THREAD = (1, 2, 4)
 #: shared memory a CTA may give the tile, and the op records and counts
+#: (an unconditional group's records and counts may take what its tile
+#: leaves of the two, up to UNCONDITIONAL_TABLE_BYTES)
 TILE_BYTES = 196608
 TABLE_BYTES = 24576
+UNCONDITIONAL_TABLE_BYTES = 98304
+#: SMs of the H100 SXM: an unconditional group's lanes spread over them
+N_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
-class ConditionalPlan:
-    """How ``group_cluster`` runs a conditional group of one shape: on
-    ``path`` "shared" (the tile in shared memory) or "global" (in device
-    memory, where the cluster cannot hold it), a cluster of ``cluster``
-    CTAs of ``threads`` threads, CTA r owning lanes [r * slice, (r + 1) *
-    slice); on the shared-memory path a thread owns ``lpt`` of them (0 on
-    the device-memory path); ``chunk`` op records staged at a time.  ``tile_bytes`` (the tile, 0 on the device-memory
-    path) and ``table_bytes`` (a chunk's records, enabled mask and counts)
-    are a CTA's dynamic shared memory."""
+class GroupPlan:
+    """How ``op_group`` runs a group of one shape: on ``path`` "shared"
+    (the tile in shared memory) or "global" (in device memory, where a CTA
+    cannot hold it), ``ctas`` CTAs of ``threads`` threads, CTA r owning
+    lanes [r * slice, (r + 1) * slice); a conditional group's CTAs form one
+    cluster (``cluster == ctas``), an unconditional group's are independent
+    (``cluster == 1``).  On the shared-memory path a thread owns ``lpt``
+    of a CTA's lanes (0 on the device-memory path); ``chunk`` op records
+    are staged at a time.  ``tile_bytes`` (the tile, 0 on the
+    device-memory path) and ``table_bytes`` (a chunk's records, enabled
+    mask and counts) are a CTA's dynamic shared memory."""
     path: str
     cluster: int
+    ctas: int
     threads: int
     slice: int
     lpt: int
@@ -166,9 +187,33 @@ def record_bytes(kc: int, kw: int) -> int:
     return 16 * (1 + 2 * (-(-kc // gc) + -(-kw // gw)))
 
 
+def _chunk(n_ops: int, kc: int, kw: int, threads: int, conditional: bool,
+           budget: int = TABLE_BYTES) -> tuple[int, int]:
+    """Ops whose records, enabled words and counts fit ``budget`` bytes,
+    and their bytes: the CTA's count and one a warp (a conditional group),
+    or the CTA's count, a slot in the list of the ops that run and one
+    byte a thread (an unconditional one); and the slots read ahead of the
+    chunk's last op (a record and an enabled word, and two list slots)."""
+    per_op = record_bytes(kc, kw) + (4 * (2 + threads // 32) if conditional
+                                     else 12 + threads)
+    # the slots read ahead of the last op
+    guard = record_bytes(kc, kw) + (4 if conditional else 12)
+    chunk = min(n_ops, (budget - guard) // per_op)
+    if chunk < 1:
+        raise ValueError(f"an op of Kc={kc}, Kw={kw} terms does not fit "
+                         f"the kernel's {budget}-byte table budget")
+    return chunk, chunk * per_op + guard
+
+
+def _check_shape(what: str, n_lanes, rows, n_ops, kc, kw) -> None:
+    if n_lanes < 1 or rows < 1 or n_ops < 1 or kc < 1 or kw < 1:
+        raise ValueError(f"no {what} plan for {n_lanes} lanes, {rows} "
+                         f"rows, {n_ops} ops, Kc={kc}, Kw={kw}")
+
+
 @functools.lru_cache(maxsize=256)
 def plan_conditional(n_lanes: int, rows: int, n_ops: int, kc: int,
-                     kw: int) -> ConditionalPlan:
+                     kw: int) -> GroupPlan:
     """The launch of a conditional group over ``n_lanes`` lanes whose
     tables touch ``rows`` consecutive rows, chosen by shape alone.
 
@@ -181,9 +226,7 @@ def plan_conditional(n_lanes: int, rows: int, n_ops: int, kc: int,
     and the counts of each warp and of the CTA go in chunks of ops that
     fit :data:`TABLE_BYTES`.
     """
-    if n_lanes < 1 or rows < 1 or n_ops < 1 or kc < 1 or kw < 1:
-        raise ValueError(f"no conditional plan for {n_lanes} lanes, {rows} "
-                         f"rows, {n_ops} ops, Kc={kc}, Kw={kw}")
+    _check_shape("conditional", n_lanes, rows, n_ops, kc, kw)
     cluster = 1
     while cluster < MAX_CLUSTER and cluster * LANES_PER_CTA < n_lanes:
         cluster *= 2
@@ -198,13 +241,53 @@ def plan_conditional(n_lanes: int, rows: int, n_ops: int, kc: int,
             break
     if path == "global":
         threads = min(MAX_THREADS, _round_up(need, 32))
-    per_op = record_bytes(kc, kw) + 4 * (2 + threads // 32)
-    chunk = min(n_ops, TABLE_BYTES // per_op)
-    if chunk < 1:
-        raise ValueError(f"an op of Kc={kc}, Kw={kw} terms does not fit "
-                         f"the kernel's {TABLE_BYTES}-byte table budget")
-    return ConditionalPlan(path, cluster, threads, slice_, lpt, chunk, tile,
-                           chunk * per_op)
+    chunk, table = _chunk(n_ops, kc, kw, threads, True)
+    return GroupPlan(path, cluster, cluster, threads, slice_, lpt, chunk,
+                     tile, table)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_unconditional(n_lanes: int, rows: int, n_ops: int, kc: int,
+                       kw: int) -> GroupPlan:
+    """The launch of an unconditional group over ``n_lanes`` lanes whose
+    tables touch ``rows`` consecutive rows, chosen by shape alone.
+
+    Lanes never interact, so the CTAs are independent and spread over the
+    card: ceil(n_lanes / :data:`N_SMS`) lanes a CTA, a warp at least, on
+    at most :data:`MAX_THREADS_UNCONDITIONAL` threads: a lane a thread up
+    to 128 lanes a CTA, then 2 consecutive lanes a thread up to 512 and 4
+    beyond (8- and 16-byte loads of a row); past 1024 lanes an SM the card
+    takes more CTAs than it has SMs.  Where that slice's tile
+    (``rows * slice`` words) exceeds :data:`TILE_BYTES`, the slice
+    shrinks, in lanes a thread and then in warps, until it fits; where not
+    even 32 lanes of the rows fit, the group takes the device-memory path:
+    at most a lane a thread, in CTAs of :data:`MAX_THREADS_UNCONDITIONAL`
+    threads, all of which copy the rows through.  Records go in chunks, as
+    :func:`plan_conditional`'s but with what the tile leaves of the shared
+    memory, up to :data:`UNCONDITIONAL_TABLE_BYTES`.
+    """
+    _check_shape("unconditional", n_lanes, rows, n_ops, kc, kw)
+    need = -(-n_lanes // N_SMS)
+    fit = TILE_BYTES // (4 * rows)          # lanes a CTA's tile holds
+    if fit < 32:
+        path, lpt, tile = "global", 0, 0
+        threads = MAX_THREADS_UNCONDITIONAL
+        slice_ = min(threads, _round_up(need, 32))
+    else:
+        path = "shared"
+        want = 1 if need <= 128 else 2 if need <= 512 else 4
+        # the widest slice that fits; on a tie, more lanes a thread
+        fits = [(min(MAX_THREADS_UNCONDITIONAL, _round_up(-(-need // k), 32),
+                     fit // k // 32 * 32), k)
+                for k in LANES_PER_THREAD if k <= want]
+        threads, lpt = max(fits, key=lambda tk: (tk[0] * tk[1], tk[1]))
+        slice_ = threads * lpt
+        tile = 4 * rows * slice_
+    chunk, table = _chunk(n_ops, kc, kw, threads, False, max(
+        TABLE_BYTES, min(UNCONDITIONAL_TABLE_BYTES,
+                         TILE_BYTES + TABLE_BYTES - tile)))
+    return GroupPlan(path, 1, -(-n_lanes // slice_), threads, slice_, lpt,
+                     chunk, tile, table)
 
 
 def branched_on(cond) -> np.ndarray:
@@ -228,11 +311,12 @@ def run_group(planes: torch.Tensor, tag: torch.Tensor,
 
     planes : int32[n_bits, n_lanes];  tag : int32[n_lanes]
     enabled: optional bool[P] op mask, NumPy or a tensor (default: all on)
-    The inputs are left unchanged.  ``backend``, ``mesh``,
+    The inputs are left unchanged: the kernel writes new outputs, and the
+    wrapper copies and fills nothing.  ``backend``, ``mesh``,
     ``block_lanes`` and ``interpret`` are the reference's options and are
     ignored: the planes' device picks the kernel or the plain version,
-    and the lanes are not sharded (the result is the same).  A
-    conditional group runs as :func:`plan_conditional` plans it.
+    and the lanes are not sharded (the result is the same).  A group runs
+    as :func:`plan_conditional` or :func:`plan_unconditional` plans it.
     """
     if not planes.is_cuda:
         if planes.device.type != "cpu":
@@ -255,76 +339,87 @@ def run_group(planes: torch.Tensor, tag: torch.Tensor,
     if dg.packed.get_device() != dev:
         raise ValueError(f"group tables on {dg.packed.device}, planes on "
                          f"{planes.device}")
-    P, kc, kw = dg.dims
+    P = dg.n_ops
     lo, hi = dg.col_range
     if lo < 0 or hi >= n_bits:
         raise IndexError(f"group column outside [0, {n_bits})")
-    en = None            # the kernels read the packed mask of ones
+    en = None            # the kernel reads every op as enabled
     if enabled is not None:
-        en = torch.as_tensor(enabled, device=planes.device).to(torch.int32)
+        # the kernel reads a bool mask as it comes (no conversion on the card)
+        en = torch.as_tensor(enabled, device=planes.device)
+        if en.dtype != torch.bool:
+            en = en != 0
         if en.shape != (P,):
             raise ValueError(f"enabled must have shape ({P},); got "
                              f"{tuple(en.shape)}")
         en = en.contiguous()
     planes = planes.contiguous()
     tag = tag.contiguous()
-    if not dg.conditional:
-        return _run_tiled(planes, tag, dg, en, dev)
     out_planes = torch.empty_like(planes)
     out_tag = torch.empty_like(tag)
     matched = torch.empty(P, dtype=torch.int32, device=planes.device)
     if n_lanes == 0:
         return out_planes, out_tag, matched.zero_()
-    prm = dg.launch.get((n_bits, n_lanes))
-    if prm is None:
-        prm = dg.launch[(n_bits, n_lanes)] = _launch_params(dg, n_bits,
-                                                            n_lanes)
-    rc = _fn("ap_megakernel_run_conditional")(
+    launch = dg.launch.get((n_bits, n_lanes))
+    if launch is None:
+        launch = dg.launch[(n_bits, n_lanes)] = _launch_params(dg, n_bits,
+                                                               n_lanes)
+    prm, plan = launch
+    stream = _build.stream(dev)
+    acc = None
+    if not dg.conditional and plan.ctas > 1:
+        acc = _accumulator(dev, stream, P).data_ptr()
+    rc = _fn("ap_megakernel_run_group")(
         planes.data_ptr(), out_planes.data_ptr(), tag.data_ptr(),
         out_tag.data_ptr(), dg.records.data_ptr(),
-        None if en is None else en.data_ptr(), matched.data_ptr(), prm,
-        _build.stream(dev))
+        None if en is None else en.data_ptr(), matched.data_ptr(), acc, prm,
+        stream)
     if rc:
-        _build.check(rc, "ap_megakernel_run_conditional")
+        _build.check(rc, "ap_megakernel_run_group")
     run_group.launches += 1
+    if not dg.conditional:
+        run_group.unconditional_launches += 1
     return out_planes, out_tag, matched
 
 
 run_group.launches = 0
+run_group.unconditional_launches = 0
 
 
 def _launch_params(dg: DeviceGroup, n_bits: int, n_lanes: int):
-    """The conditional kernel's host parameters for ``dg`` over planes of
-    ``n_bits x n_lanes`` (``ap_megakernel_run_conditional``'s ``prm``):
-    the shapes, the records' groups of terms and the plan."""
-    if n_bits * n_lanes >= 2 ** 31:
-        raise ValueError(f"{n_bits} x {n_lanes} words: the kernel indexes "
-                         f"rows with 32-bit offsets")
+    """The kernel's host parameters for ``dg`` over planes of ``n_bits x
+    n_lanes`` (``ap_megakernel_run_group``'s ``prm``: the shapes, the
+    records' groups of terms and the plan) and the plan."""
+    if n_bits * n_lanes >= 2 ** 30:
+        raise ValueError(f"{n_bits} x {n_lanes} words: the kernel reaches "
+                         f"rows by 32-bit byte offsets")
     P, kc, kw = dg.dims
     lo, hi = dg.col_range
     gc, gw = group_sizes(kc, kw)
-    pl = plan_conditional(n_lanes, hi - lo + 1, P, kc, kw)
-    return (ctypes.c_int * 14)(
+    plan_fn = plan_conditional if dg.conditional else plan_unconditional
+    pl = plan_fn(n_lanes, hi - lo + 1, P, kc, kw)
+    prm = (ctypes.c_int * 16)(
         n_bits, n_lanes, lo, hi - lo + 1, P, -(-kc // gc), -(-kw // gw), gc,
-        gw, pl.cluster, pl.threads, pl.slice, pl.lpt, pl.chunk)
+        gw, pl.cluster, pl.threads, pl.slice, pl.lpt, pl.chunk, pl.ctas,
+        int(dg.conditional))
+    return prm, pl
 
 
-def _run_tiled(planes, tag, dg: DeviceGroup, en, dev: int):
-    """An unconditional group: ``group_tiled`` in place on copies."""
-    P, kc, kw = dg.dims
-    out_planes = planes.clone()
-    out_tag = tag.clone()
-    matched = torch.zeros(P, dtype=torch.int32, device=planes.device)
-    if planes.shape[1] == 0:
-        return out_planes, out_tag, matched
-    rc = _fn("ap_megakernel_run_group")(
-        out_planes.data_ptr(), out_tag.data_ptr(), planes.shape[1],
-        dg.packed.data_ptr(), None if en is None else en.data_ptr(), P, kc,
-        kw, matched.data_ptr(), _build.stream(dev))
-    if rc:
-        _build.check(rc, "ap_megakernel_run_group")
-    run_group.launches += 1
-    return out_planes, out_tag, matched
+#: the unconditional kernel's count accumulators, by (card, stream)
+_ACCUMULATORS: dict = {}
+
+
+def _accumulator(dev: int, stream: int, n_ops: int) -> torch.Tensor:
+    """int32 zeros ``[1 + n_ops]`` (or more) for independent CTAs' counts
+    on ``stream``: the kernel leaves it zero after each launch, so it is
+    zeroed only when made.  One a stream, so launches on two streams never
+    share one."""
+    acc = _ACCUMULATORS.get((dev, stream))
+    if acc is None or acc.numel() < 1 + n_ops:
+        acc = torch.zeros(1 + max(n_ops, 1024), dtype=torch.int32,
+                          device=torch.device("cuda", dev))
+        _ACCUMULATORS[(dev, stream)] = acc
+    return acc
 
 
 #: the probe's cluster: the 2^20 sort's rounds (16 CTAs of 512 threads)
@@ -354,9 +449,7 @@ def cluster_probe(device="cuda", iters: int = 4096) -> dict:
 
 
 _ARGTYPES = {
-    "ap_megakernel_run_group": [ctypes.c_void_p] * 2 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
-    "ap_megakernel_run_conditional": [ctypes.c_void_p] * 7
+    "ap_megakernel_run_group": [ctypes.c_void_p] * 8
     + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
     "ap_megakernel_probe": [ctypes.c_void_p] + [ctypes.c_int] * 3
     + [ctypes.c_void_p],

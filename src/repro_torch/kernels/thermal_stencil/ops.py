@@ -17,7 +17,10 @@ The seven face fields go to the kernel as one contiguous pack
 ``[7, ...]`` (:class:`FieldPack`, made by :func:`pack_fields`).  A pack is
 checked once, where it is built (``thermal.Grid.fields``, the replay's
 case batch, every multigrid level), so a launch on it checks only ``T``;
-a plain dict of seven tensors is packed, and checked, on every call.
+a plain dict of seven tensors is packed, and checked, on every call.  The
+uniform stencil's four per-layer vectors go the same way, as one ``[4,
+L]`` pack (:class:`LayerVectors`, which :func:`vectors` returns); four
+loose tensors are packed, and checked, on every call.
 """
 from __future__ import annotations
 
@@ -164,11 +167,57 @@ def apply_operator_plain(T: torch.Tensor, g_lat: torch.Tensor,
             + col(g_pkg) * T)
 
 
-def vectors(L: int, g_lat, g_vert, g_pkg, device="cpu"):
-    """Scalar-or-vector conductances -> the four float32 [L] per-layer
-    vectors of the uniform stencil (g_lat, gv_up, gv_dn, g_pkg), on
-    ``device``: ``g_lat`` scalar or [L], ``g_vert`` scalar or [L-1]
-    (interfaces, top to bottom), ``g_pkg`` a scalar on the last layer."""
+VECTOR_KEYS = ("g_lat", "gv_up", "gv_dn", "g_pkg")
+
+
+class LayerVectors(tuple):
+    """The uniform stencil's four per-layer float32 ``[L]`` vectors
+    (``VECTOR_KEYS`` order) as views of one contiguous tensor ``data`` of
+    shape ``[4, L]``, checked once when :func:`pack_vectors` builds it.
+    It unpacks as the four vectors."""
+
+    def __new__(cls, data: torch.Tensor):
+        self = super().__new__(cls, data.unbind(0))
+        self.data = data
+        self.n_layers = data.shape[1]
+        self.device_index = data.get_device()
+        self.ptr = data.data_ptr()
+        self.launch = {}         # T's shape -> the kernel's checked dims
+        return self
+
+    def __reduce__(self):    # copies and pickles rebuild the views
+        return LayerVectors, (self.data,)
+
+
+def pack_vectors(vecs) -> LayerVectors:
+    """``vecs`` as a :class:`LayerVectors` (``vecs`` itself if it is one):
+    four float32 tensors of one shape ``[L]`` on one device, stacked by
+    one copy."""
+    if type(vecs) is LayerVectors:
+        return vecs
+    if len(vecs) != 4:
+        raise TypeError(f"the uniform stencil takes four per-layer vectors "
+                        f"{VECTOR_KEYS}; got {len(vecs)}")
+    v0 = vecs[0]
+    for name, v in zip(VECTOR_KEYS, vecs):
+        if (not torch.is_tensor(v) or v.dim() != 1 or v.shape != v0.shape
+                or v.dtype != torch.float32 or v.device != v0.device):
+            raise ValueError(
+                f"{name} must be a float32 [L] tensor of {VECTOR_KEYS[0]}'s "
+                f"shape {tuple(getattr(v0, 'shape', ()))} on "
+                f"{getattr(v0, 'device', None)}; got "
+                f"{getattr(v, 'dtype', type(v))} "
+                f"{tuple(getattr(v, 'shape', ()))} on "
+                f"{getattr(v, 'device', None)}")
+    return LayerVectors(torch.stack(vecs))
+
+
+def vectors(L: int, g_lat, g_vert, g_pkg, device="cpu") -> LayerVectors:
+    """Scalar-or-vector conductances -> the uniform stencil's four float32
+    [L] per-layer vectors (g_lat, gv_up, gv_dn, g_pkg) on ``device``, as
+    one checked :class:`LayerVectors` pack: ``g_lat`` scalar or [L],
+    ``g_vert`` scalar or [L-1] (interfaces, top to bottom), ``g_pkg`` a
+    scalar on the last layer."""
     as32 = lambda x: torch.as_tensor(np.asarray(x, np.float32)
                                      if not torch.is_tensor(x) else x,
                                      dtype=torch.float32, device=device)
@@ -179,7 +228,7 @@ def vectors(L: int, g_lat, g_vert, g_pkg, device="cpu"):
     gv_d = torch.cat([g_vert, zero])
     g_pkg_vec = torch.zeros(L, dtype=torch.float32, device=device)
     g_pkg_vec[-1] = float(g_pkg)
-    return g_lat, gv_u, gv_d, g_pkg_vec
+    return pack_vectors((g_lat, gv_u, gv_d, g_pkg_vec))
 
 
 def apply_operator(T: torch.Tensor, g_lat, g_vert, g_pkg, *,
@@ -191,47 +240,67 @@ def apply_operator(T: torch.Tensor, g_lat, g_vert, g_pkg, *,
     Pallas options and are ignored: the tensor's device picks the kernel
     or the plain version."""
     return apply_operator_vectors(
-        T, *vectors(T.shape[-3], g_lat, g_vert, g_pkg, T.device))
+        T, vectors(T.shape[-3], g_lat, g_vert, g_pkg, T.device))
 
 
-def apply_operator_vectors(T: torch.Tensor, g_lat: torch.Tensor,
-                           gv_up: torch.Tensor, gv_dn: torch.Tensor,
-                           g_pkg: torch.Tensor) -> torch.Tensor:
+def apply_operator_vectors(T: torch.Tensor, *vecs) -> torch.Tensor:
     """y = G T of the uniform-per-layer stencil for ``T`` of shape
-    [L, NY, NX] or [B, L, NY, NX], from the four per-layer float32 [L]
-    vectors on T's device (:func:`vectors` builds them once), shared by
-    the batch.  Its launches count on ``apply_operator.launches``."""
-    vecs = (g_lat, gv_up, gv_dn, g_pkg)
-    if T.device.type == "cpu":
-        return apply_operator_plain(T, *vecs)
-    if T.device.type != "cuda":
-        raise ValueError(f"unsupported device {T.device}")
-    if T.dim() not in (3, 4) or T.dtype != torch.float32:
-        raise ValueError(f"T must be float32 [L,NY,NX] or [B,L,NY,NX]; got "
-                         f"{T.dtype} {tuple(T.shape)}")
-    L, NY, NX = T.shape[-3:]
-    for name, v in zip(("g_lat", "gv_up", "gv_dn", "g_pkg"), vecs):
-        if (v.shape != (L,) or v.dtype != torch.float32
-                or v.device != T.device or not v.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous float32 [{L}] "
-                             f"tensor on {T.device}")
-    T = T.contiguous()
-    B = T.shape[0] if T.dim() == 4 else 1
+    [L, NY, NX] or [B, L, NY, NX], shared by the batch, from one
+    :class:`LayerVectors` pack on T's device (:func:`vectors` builds it
+    once; a launch on it checks only ``T``, and a shape once) or from four
+    loose float32 [L] tensors (g_lat, gv_up, gv_dn, g_pkg), packed and
+    checked on each call on the card.  Its launches count on
+    ``apply_operator.launches``."""
+    V = vecs[0] if len(vecs) == 1 else vecs
+    if not T.is_cuda:
+        if T.device.type != "cpu":
+            raise ValueError(f"unsupported device {T.device}")
+        return apply_operator_plain(T, *V)
+    if type(V) is not LayerVectors:
+        V = pack_vectors(V)
+    if T.dtype != torch.float32 or T.get_device() != V.device_index:
+        raise ValueError(f"T must be float32 on {V.data.device}; got "
+                         f"{T.dtype} on {T.device}")
+    dims = V.launch.get(T.shape)
+    if dims is None:
+        dims = V.launch.setdefault(T.shape, _uniform_dims(T.shape,
+                                                          V.n_layers))
+    if not T.is_contiguous():
+        T = T.contiguous()
     y = torch.empty_like(T)
-    if y.numel() == 0:
+    if not dims:
         return y
-    rc = _lib().thermal_stencil_uniform(
-        T.data_ptr(), *(v.data_ptr() for v in vecs), y.data_ptr(),
-        B, L, NY, NX, torch.cuda.current_stream(T.device).cuda_stream)
-    _build.check(rc, "thermal_stencil_uniform")
+    rc = _uniform_fn()(T.data_ptr(), V.ptr, y.data_ptr(), *dims,
+                       _build.stream(V.device_index))
+    if rc:
+        _build.check(rc, "thermal_stencil_uniform")
     apply_operator.launches += 1
     return y
+
+
+def _uniform_dims(shape, n_layers: int) -> tuple:
+    """The uniform kernel's (B, L, NY, NX) for ``T`` of ``shape``, checked
+    against the pack's ``n_layers`` and the kernel's 32-bit indexing and
+    grid limits; ``()`` for an empty ``T``."""
+    if len(shape) not in (3, 4) or shape[-3] != n_layers:
+        raise ValueError(f"T must be [L,NY,NX] or [B,L,NY,NX] with L = "
+                         f"{n_layers}; got {tuple(shape)}")
+    L, NY, NX = shape[-3:]
+    B = shape[0] if len(shape) == 4 else 1
+    n = B * L * NY * NX
+    if n == 0:
+        return ()
+    if n >= 2 ** 31 or B * L > 65535 or NY > 8 * 65535:
+        raise ValueError(f"T {tuple(shape)}: the kernel indexes cells with "
+                         f"32-bit integers and takes at most 65535 planes "
+                         f"and 8 * 65535 rows")
+    return B, L, NY, NX
 
 
 apply_operator.launches = 0
 
 
-_FIELDS_FN = None
+_FIELDS_FN = _UNIFORM_FN = None
 
 
 def _fields_fn():
@@ -240,6 +309,14 @@ def _fields_fn():
     if _FIELDS_FN is None:
         _FIELDS_FN = _lib().thermal_stencil_fields
     return _FIELDS_FN
+
+
+def _uniform_fn():
+    """The uniform kernel's ctypes entry, resolved once."""
+    global _UNIFORM_FN
+    if _UNIFORM_FN is None:
+        _UNIFORM_FN = _lib().thermal_stencil_uniform
+    return _UNIFORM_FN
 
 
 def _lib() -> ctypes.CDLL:
@@ -252,6 +329,6 @@ def _lib() -> ctypes.CDLL:
     fn = lib.thermal_stencil_uniform
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
     return lib

@@ -200,6 +200,49 @@ def test_uniform_stencil_kernel_equals_plain(cuda, shape):
         rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("L", list(range(1, 17)) + [20])
+@pytest.mark.parametrize("batch,ny,nx", [(None, 24, 32), (None, 9, 13),
+                                         (3, 17, 36), (2, 5, 7)])
+def test_uniform_stencil_every_layer_count_equals_plain(cuda, L, batch, ny,
+                                                        nx):
+    """One thread a cell, four x-adjacent cells a thread where NX is a
+    multiple of 4 (else one): every layer count, batched and not, odd
+    widths, from the pack and from four loose vectors, bit for bit; the
+    inputs are left unchanged."""
+    shape = (L, ny, nx) if batch is None else (batch, L, ny, nx)
+    rng = np.random.default_rng(L * 1000 + ny * 10 + nx)
+    T = torch.from_numpy(rng.uniform(45, 75, shape).astype(np.float32))
+    g = rng.uniform(0, 1e-1, (4, L)).astype(np.float32)
+    g[1, 0] = g[2, -1] = 0.0
+    T = T.to(cuda)
+    pack = st_ops.pack_vectors(tuple(torch.from_numpy(v).to(cuda)
+                                     for v in g))
+    T0, V0 = T.clone(), pack.data.clone()
+    before = st_ops.apply_operator.launches
+    got = st_ops.apply_operator_vectors(T, pack)
+    loose = st_ops.apply_operator_vectors(T, *pack)
+    assert st_ops.apply_operator.launches == before + 2
+    want = st_ops.apply_operator_plain(T, *pack)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(loose, want, rtol=0, atol=0)
+    assert torch.equal(T, T0) and torch.equal(pack.data, V0)
+
+
+def test_uniform_stencil_unaligned_input_equals_plain(cuda):
+    """A T whose storage does not start on 16 bytes takes a cell a
+    thread."""
+    L, ny, nx = 5, 8, 16
+    rng = np.random.default_rng(3)
+    flat = torch.from_numpy(rng.uniform(45, 75, L * ny * nx + 1)
+                            .astype(np.float32)).to(cuda)
+    T = flat[1:].view(L, ny, nx)
+    assert T.data_ptr() % 16 != 0
+    pack = st_ops.vectors(L, 0.05, 0.3, 0.1, cuda)
+    torch.testing.assert_close(st_ops.apply_operator_vectors(T, pack),
+                               st_ops.apply_operator_plain(T, *pack),
+                               rtol=0, atol=0)
+
+
 def test_uniform_stencil_kernel_rejects_bad_vectors(cuda):
     T = torch.zeros((3, 8, 8), device=cuda)
     v = torch.zeros(3, device=cuda)
@@ -207,6 +250,12 @@ def test_uniform_stencil_kernel_rejects_bad_vectors(cuda):
         st_ops.apply_operator_vectors(T, v, v, v, torch.zeros(2, device=cuda))
     with pytest.raises(ValueError):
         st_ops.apply_operator_vectors(T, v, v, v.cpu(), v)
+    pack = st_ops.pack_vectors((v, v, v, v))
+    with pytest.raises(ValueError, match="L = 3"):
+        st_ops.apply_operator_vectors(torch.zeros((4, 8, 8), device=cuda),
+                                      pack)
+    with pytest.raises(ValueError, match="float32"):
+        st_ops.apply_operator_vectors(T.double(), pack)
 
 
 def _schedule(name):
@@ -440,6 +489,103 @@ def test_megakernel_cluster_paths_equal_plain(cuda, shape):
     want = mk_ref.group_scan_plain(planes, tag, group.tables(), enabled)
     for a, b in zip(got, want[:3]):
         assert torch.equal(a, b)
+
+
+def _unconditional_group(rng, n_bits, P, max_c, max_w):
+    """Random unconditional ops of every kind with up to ``max_c`` compare
+    and ``max_w`` write terms, a CMP_TAG after a CMP and a column written
+    twice in one op."""
+    ops = []
+    for _ in range(P):
+        nc, nw = int(rng.integers(1, max_c + 1)), int(rng.integers(1,
+                                                                   max_w + 1))
+        ops.append((int(rng.integers(0, 4)), 0,
+                    rng.integers(0, n_bits, nc).tolist(),
+                    rng.integers(0, 2, nc).tolist(),
+                    rng.integers(0, n_bits, nw).tolist(),
+                    rng.integers(0, 2, nw).tolist()))
+    ops[1] = (mk_ref.OP_CMP, 0, [1, 2], [1, 0], [], [])
+    ops[2] = (mk_ref.OP_CMP_TAG, 0, [3], [1], [], [])
+    ops[-1] = (mk_ref.OP_WRITE, 0, [], [], [3, 5, 3], [1, 0, 0])
+    return mk_ref.OpGroup.build(ops)
+
+
+#: unconditional groups on each path, lanes-a-thread value and chunking:
+#: (n_bits, n_lanes, ops, max Kc, max Kw) -> (path, lanes a thread)
+UNCONDITIONAL_SHAPES = {
+    (12, 32, 40, 2, 1): ("shared", 1),        # one CTA, one warp
+    (12, 31, 40, 4, 2): ("shared", 1),        # lanes not filling the CTA
+    (12, 1025, 40, 8, 4): ("shared", 1),      # a ragged last CTA
+    (12, 32769, 40, 6, 2): ("shared", 2),
+    (12, 100000, 40, 3, 3): ("shared", 4),    # 4 lanes a thread
+    (12, 2 ** 20, 24, 2, 1): ("shared", 4),
+    (12, 4096, 600, 10, 6): ("shared", 1),    # chunks; groups out of line
+    (2000, 33, 40, 6, 4): ("global", 0),      # tile past one CTA
+    (2000, 1000, 300, 9, 5): ("global", 0),
+}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", sorted(UNCONDITIONAL_SHAPES))
+def test_megakernel_unconditional_paths_equal_plain(cuda, shape, masked):
+    """The unconditional path bit for bit (planes, tag, matched) on both
+    of its paths, every lanes-a-thread value, more ops than a chunk, with
+    and without an enabled mask; the inputs are left unchanged."""
+    n_bits, n_lanes, P, max_c, max_w = shape
+    rng = np.random.default_rng(n_bits * 7 + n_lanes + P)
+    group = _unconditional_group(rng, n_bits, P, max_c, max_w)
+    cols = np.concatenate([group.cmp_cols.ravel(), group.w_cols.ravel()])
+    plan = mk_ops.plan_unconditional(n_lanes, int(cols.max() - cols.min())
+                                     + 1, P, group.cmp_cols.shape[1],
+                                     group.w_cols.shape[1])
+    assert (plan.path, plan.lpt) == UNCONDITIONAL_SHAPES[shape]
+    if P == 600:
+        assert plan.chunk < P
+    planes = interop.planes_from_reference(
+        rng.integers(0, 2 ** 32, (n_bits, n_lanes),
+                     dtype=np.uint64).astype(np.uint32), cuda)
+    tag = interop.planes_from_reference(
+        rng.integers(0, 2 ** 32, (1, n_lanes),
+                     dtype=np.uint64).astype(np.uint32), cuda)[0]
+    enabled = rng.integers(0, 4, P) > 0 if masked else None
+    p0, t0 = planes.clone(), tag.clone()
+    before = (mk_ops.run_group.launches,
+              mk_ops.run_group.unconditional_launches)
+    got = mk_ops.run_group(planes, tag, group, enabled)
+    assert (mk_ops.run_group.launches,
+            mk_ops.run_group.unconditional_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = mk_ref.group_scan_plain(planes, tag, group.tables(), enabled)
+    for a, b, what in zip(got, want[:3], ("planes", "tag", "matched")):
+        assert torch.equal(a, b), what
+    assert torch.equal(planes, p0) and torch.equal(tag, t0)
+    # a second launch on the same stream reuses the counts' accumulator
+    again = mk_ops.run_group(planes, tag, group, enabled)
+    for a, b in zip(again, want[:3]):
+        assert torch.equal(a, b)
+
+
+def test_megakernel_unconditional_on_two_streams(cuda):
+    """Launches on two streams keep their counts apart (one accumulator a
+    stream)."""
+    rng = np.random.default_rng(9)
+    group = _unconditional_group(rng, 10, 64, 3, 2)
+    planes = interop.planes_from_reference(
+        rng.integers(0, 2 ** 32, (10, 8192),
+                     dtype=np.uint64).astype(np.uint32), cuda)
+    tag = torch.full((8192,), -1, dtype=torch.int32, device=cuda)
+    want = mk_ref.group_scan_plain(planes, tag, group.tables())
+    dg = mk_ops.device_group(group, cuda)
+    side = torch.cuda.Stream()
+    outs = []
+    for s in (torch.cuda.current_stream(), side, side,
+              torch.cuda.current_stream()):
+        with torch.cuda.stream(s):
+            outs.append(mk_ops.run_group(planes, tag, dg))
+    torch.cuda.synchronize()
+    for got in outs:
+        for a, b in zip(got, want[:3]):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n_lanes", [32, 1025, 32768])

@@ -1,12 +1,14 @@
-"""The conditional megakernel's host-side plan, and a plain-PyTorch
-emulation of how the cluster kernel splits and counts a group.
+"""The megakernel's host-side plans, and a plain-PyTorch emulation of how
+the cluster kernel splits and counts a conditional group.
 
 ``ops.plan_conditional`` picks, by shape alone, the cluster size, the
 threads, the lanes a CTA and a thread own, the path (the tile in shared
-or in device memory) and the op-record chunk of ``group_cluster`` in
-``csrc/ap_megakernel.cu``.  The plan is checked here for covering every
-lane exactly once, staying within the shared-memory budget and taking
-the stated path at each shape.
+or in device memory) and the op-record chunk of ``op_group`` in
+``csrc/ap_megakernel.cu`` for a conditional group;
+``ops.plan_unconditional`` the same for an unconditional group, whose
+CTAs are independent and spread over the card.  Each plan is checked
+here for covering every lane exactly once, staying within the
+shared-memory budget and taking the stated path at each shape.
 
 ``_emulate_cluster`` repeats the kernel's algorithm in plain PyTorch:
 the lanes split into C slices (zero-padded to the slice width, their
@@ -35,14 +37,17 @@ SMEM_LIMIT = 232448 - 512
 def _lane_owners(n_lanes: int, plan) -> np.ndarray:
     """How many (CTA, thread, k) slots own each lane under ``plan``."""
     seen = np.zeros(n_lanes, np.int64)
-    for r in range(plan.cluster):
+    for r in range(plan.ctas):
         lanes = np.arange(r * plan.slice, (r + 1) * plan.slice)
         if plan.path == "shared":
-            # thread t owns slice lanes t + k * threads, k < lpt
-            j = (np.arange(plan.threads)[:, None]
-                 + plan.threads * np.arange(plan.lpt)[None, :]).ravel()
+            # thread t owns slice lanes t * lpt + k, k < lpt
+            j = (plan.lpt * np.arange(plan.threads)[:, None]
+                 + np.arange(plan.lpt)[None, :]).ravel()
             assert sorted(j.tolist()) == list(range(plan.slice))
             lanes = lanes[j]
+        else:
+            # thread t owns slice lanes t, t + threads, ...
+            assert plan.lpt == 0
         lanes = lanes[lanes < n_lanes]
         np.add.at(seen, lanes, 1)
     return seen
@@ -53,7 +58,7 @@ def _lane_owners(n_lanes: int, plan) -> np.ndarray:
                                      32768, 32769, 65536, 65537, 2 ** 20])
 def test_plan_covers_every_lane_once_within_budget(n_lanes, rows):
     plan = ops.plan_conditional(n_lanes, rows, 28, 2, 1)
-    assert 1 <= plan.cluster <= ops.MAX_CLUSTER
+    assert 1 <= plan.cluster <= ops.MAX_CLUSTER and plan.ctas == plan.cluster
     assert plan.cluster & (plan.cluster - 1) == 0
     assert 32 <= plan.threads <= ops.MAX_THREADS and plan.threads % 32 == 0
     assert plan.cluster * plan.slice >= n_lanes
@@ -98,13 +103,17 @@ def test_plan_takes_the_stated_path(shape):
 
 def test_plan_chunks_the_records_and_refuses_what_cannot_fit():
     # a record, the enabled word, the CTA's count and one count a warp
+    # and one more record and enabled word, read ahead of the last op
     one = ops.plan_conditional(32, 10, 28, 2, 1)
     assert one.chunk == 28                   # a sort round: one chunk
-    assert one.table_bytes == 28 * (ops.record_bytes(2, 1) + 4 * 3)
+    guard = ops.record_bytes(2, 1) + 4
+    assert one.table_bytes == 28 * (ops.record_bytes(2, 1) + 4 * 3) + guard
     many = ops.plan_conditional(32768, 10, 5000, 9, 9)
     per_op = ops.record_bytes(9, 9) + 4 * (2 + 512 // 32)
-    assert many.chunk == ops.TABLE_BYTES // per_op < 5000
-    assert ops.group_sizes(2, 1) == (2, 1) and ops.group_sizes(3, 2) == (4, 4)
+    guard = ops.record_bytes(9, 9) + 4
+    assert many.chunk == (ops.TABLE_BYTES - guard) // per_op < 5000
+    assert ops.group_sizes(2, 1) == (2, 1) and ops.group_sizes(3, 2) == (4, 2)
+    assert ops.group_sizes(1, 3) == (2, 4)
     assert ops.record_bytes(1, 1) == ops.record_bytes(2, 1) == 80
     assert ops.record_bytes(4, 4) == 80 and ops.record_bytes(5, 1) == 112
     assert ops.record_bytes(3, 5) == 16 * (1 + 2 * (1 + 2))
@@ -112,6 +121,98 @@ def test_plan_chunks_the_records_and_refuses_what_cannot_fit():
         ops.plan_conditional(32, 10, 4, 8000, 8000)
     with pytest.raises(ValueError):
         ops.plan_conditional(0, 10, 4, 1, 1)
+
+
+#: 2^20 AP words, 32 a lane: the lanes of the paper's full array
+PAPER_LANES = 2 ** 20 // 32
+
+
+@pytest.mark.parametrize("rows", [1, 10, 26, 200, 1536, 1537, 2000])
+@pytest.mark.parametrize("n_lanes", [1, 31, 32, 33, 100, 1024, 1025, 16384,
+                                     PAPER_LANES, PAPER_LANES + 1, 65536,
+                                     2 ** 20])
+def test_unconditional_plan_covers_every_lane_once_within_budget(n_lanes,
+                                                                 rows):
+    plan = ops.plan_unconditional(n_lanes, rows, 256, 4, 2)
+    assert plan.cluster == 1 and plan.ctas == -(-n_lanes // plan.slice)
+    assert 32 <= plan.threads <= ops.MAX_THREADS_UNCONDITIONAL
+    assert plan.threads % 32 == 0
+    np.testing.assert_array_equal(_lane_owners(n_lanes, plan), 1)
+    assert plan.tile_bytes + plan.table_bytes <= SMEM_LIMIT
+    assert plan.table_bytes <= ops.UNCONDITIONAL_TABLE_BYTES
+    if plan.path == "shared":
+        assert plan.lpt in ops.LANES_PER_THREAD
+        assert plan.slice == plan.threads * plan.lpt
+        assert plan.tile_bytes == 4 * rows * plan.slice <= ops.TILE_BYTES
+    else:
+        # only where no CTA can hold even one warp's tile; a lane a thread
+        assert 4 * rows * 32 > ops.TILE_BYTES
+        assert plan.lpt == 0 and plan.tile_bytes == 0
+        assert plan.slice <= plan.threads
+    # spread over the card: more than half as many CTAs as SMs where the
+    # lanes allow (slices are whole warps), each at least a warp
+    assert 2 * plan.ctas > min(ops.N_SMS, -(-n_lanes // 32))
+
+
+#: (n_lanes, rows) -> (path, CTAs, threads, lanes a thread)
+UNCONDITIONAL_STATED = {
+    (32, 30): ("shared", 1, 32, 1),           # spmv's probe batch
+    (31, 30): ("shared", 1, 32, 1),           # lanes not a multiple of 32
+    (33, 30): ("shared", 2, 32, 1),
+    (1024, 26): ("shared", 32, 32, 1),        # a 1024-element trace
+    (16384, 26): ("shared", 128, 128, 1),
+    (PAPER_LANES, 26): ("shared", 128, 128, 2),   # the multiply group
+    (PAPER_LANES + 1, 26): ("shared", 129, 128, 2),
+    (65536, 26): ("shared", 128, 256, 2),
+    (2 ** 20, 26): ("shared", 1024, 256, 4),
+    (PAPER_LANES, 400): ("shared", 342, 96, 1),   # the tile shrinks
+    (PAPER_LANES, 1536): ("shared", 1024, 32, 1),  # one warp's tile fits
+    (PAPER_LANES, 1537): ("global", 128, 256, 0),  # not even one warp's
+    (1024, 2048): ("global", 32, 256, 0),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(UNCONDITIONAL_STATED))
+def test_unconditional_plan_takes_the_stated_path(shape):
+    plan = ops.plan_unconditional(*shape, 256, 4, 2)
+    assert (plan.path, plan.ctas, plan.threads, plan.lpt) == \
+        UNCONDITIONAL_STATED[shape]
+
+
+def test_unconditional_plan_chunks_what_its_tile_leaves():
+    """Records, enabled words, a list slot and one count byte a thread go
+    in chunks of what the tile leaves of the shared memory (at most
+    UNCONDITIONAL_TABLE_BYTES), with one more record and enabled word and
+    two list slots read ahead of a chunk's last op."""
+    spmv = ops.plan_unconditional(32, 29, 512, 8, 1)
+    assert spmv.chunk == 512                  # the probe batch: one chunk
+    per_op = ops.record_bytes(8, 1) + 12 + 32
+    guard = ops.record_bytes(8, 1) + 12
+    assert spmv.table_bytes == 512 * per_op + guard
+    many = ops.plan_unconditional(PAPER_LANES, 10, 5000, 9, 9)
+    per_op = ops.record_bytes(9, 9) + 12 + many.threads
+    guard = ops.record_bytes(9, 9) + 12
+    assert many.chunk == (ops.UNCONDITIONAL_TABLE_BYTES - guard) // per_op
+    assert many.chunk < 5000
+    # a tile that leaves less than the budget leaves the table the rest
+    big = ops.plan_unconditional(PAPER_LANES, 1536, 5000, 2, 1)
+    budget = max(ops.TABLE_BYTES,
+                 ops.TILE_BYTES + ops.TABLE_BYTES - big.tile_bytes)
+    assert big.table_bytes <= budget
+    assert big.chunk == (budget - ops.record_bytes(2, 1) - 12) // (
+        ops.record_bytes(2, 1) + 12 + big.threads)
+    with pytest.raises(ValueError, match="table budget"):
+        ops.plan_unconditional(32, 10, 4, 8000, 8000)
+    with pytest.raises(ValueError):
+        ops.plan_unconditional(32, 0, 4, 1, 1)
+
+
+def test_launch_params_refuse_offsets_past_32_bits():
+    group = ref.OpGroup.probes([[0]], [[1]])
+    dg = ops.device_group(group, "cpu")
+    ops._launch_params(dg, 32, 2 ** 25 - 1)
+    with pytest.raises(ValueError, match="32-bit byte offsets"):
+        ops._launch_params(dg, 32, 2 ** 25)
 
 
 # ---------------------------------------------------------------------------
@@ -139,9 +240,9 @@ def _branched(cond: np.ndarray) -> list[bool]:
 
 def _emulate_cluster(planes, tag, group, enabled, cluster: int,
                      slice_: int):
-    """``group_cluster`` over ``cluster`` CTAs of ``slice_`` lanes each, in
-    plain PyTorch, reading the op records the kernel reads
-    (``ops.records``) -> (planes', tag', matched int32[P])."""
+    """``op_group`` on a conditional group over ``cluster`` CTAs of
+    ``slice_`` lanes each, in plain PyTorch, reading the op records the
+    kernel reads (``ops.records``) -> (planes', tag', matched int32[P])."""
     P, kc = group.cmp_cols.shape
     kw = group.w_cols.shape[1]
     cols = np.concatenate([group.cmp_cols.ravel(), group.w_cols.ravel()])
