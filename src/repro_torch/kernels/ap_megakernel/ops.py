@@ -5,7 +5,10 @@ tag).  For planes on the CPU it runs :func:`.ref.group_scan_plain`; for
 planes on a CUDA device it launches the hand-written kernel
 ``csrc/ap_megakernel.cu`` (which replaces the TPU kernel
 ``run_group_kernel`` of the reference package) or raises — it never
-falls back.  ``run_group.launches`` counts kernel launches.
+falls back.  A group the kernel cannot take (an op past its table
+budget, planes past its 32-bit offsets), which the reference runs,
+raises ``NotImplementedError``; a bad argument raises ``ValueError``.
+``run_group.launches`` counts kernel launches.
 
 A device program that runs the same group many times uploads its tables
 once with :func:`device_group` and passes the result instead of the
@@ -200,8 +203,9 @@ def _chunk(n_ops: int, kc: int, kw: int, threads: int, conditional: bool,
     guard = record_bytes(kc, kw) + (4 if conditional else 12)
     chunk = min(n_ops, (budget - guard) // per_op)
     if chunk < 1:
-        raise ValueError(f"an op of Kc={kc}, Kw={kw} terms does not fit "
-                         f"the kernel's {budget}-byte table budget")
+        raise NotImplementedError(
+            f"an op of Kc={kc}, Kw={kw} terms does not fit the kernel's "
+            f"{budget}-byte table budget")
     return chunk, chunk * per_op + guard
 
 
@@ -391,8 +395,8 @@ def _launch_params(dg: DeviceGroup, n_bits: int, n_lanes: int):
     n_lanes`` (``ap_megakernel_run_group``'s ``prm``: the shapes, the
     records' groups of terms and the plan) and the plan."""
     if n_bits * n_lanes >= 2 ** 30:
-        raise ValueError(f"{n_bits} x {n_lanes} words: the kernel reaches "
-                         f"rows by 32-bit byte offsets")
+        raise NotImplementedError(f"{n_bits} x {n_lanes} words: the kernel "
+                                  f"reaches rows by 32-bit byte offsets")
     P, kc, kw = dg.dims
     lo, hi = dg.col_range
     gc, gw = group_sizes(kc, kw)

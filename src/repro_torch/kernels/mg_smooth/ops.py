@@ -5,7 +5,10 @@ V-cycle level of ``core/multigrid`` runs.  For a tensor on the CPU it
 runs :func:`rb_line_sweep_plain`; for a CUDA tensor it launches the
 hand-written kernel ``csrc/mg_smooth.cu`` (which replaces the TPU kernel
 ``rb_line_sweep_kernel`` of the reference package) or raises — it never
-falls back.  ``rb_line_sweep.launches`` counts kernel launches.
+falls back.  A shape the kernel cannot take (more than
+:data:`MAX_LAYERS` layers, past 32-bit indices), which the reference
+runs, raises ``NotImplementedError``; a bad argument raises
+``ValueError``.  ``rb_line_sweep.launches`` counts kernel launches.
 
 The coefficients go to the kernel split by colour, with the parts of
 the Thomas recursion that depend on them alone precomputed
@@ -198,8 +201,8 @@ def rb_line_sweep(T: torch.Tensor, b: torch.Tensor, F: dict, d_extra,
                          f"{b.dtype} {tuple(b.shape)} on {b.device}")
     L, NY, NX = F.layers_y_x
     if L > MAX_LAYERS:
-        raise ValueError(f"{L} layers; the kernel takes at most "
-                         f"{MAX_LAYERS}")
+        raise NotImplementedError(f"{L} layers; the kernel takes at most "
+                                  f"{MAX_LAYERS}")
     T = T.contiguous()
     b = b.contiguous()
     out = torch.empty_like(T)
@@ -207,8 +210,8 @@ def rb_line_sweep(T: torch.Tensor, b: torch.Tensor, F: dict, d_extra,
     if n == 0:
         return out
     if coef.numel() >= 2 ** 31:
-        raise ValueError(f"{n} cells: the kernel indexes the coefficients "
-                         f"with 32-bit integers")
+        raise NotImplementedError(f"{n} cells: the kernel indexes the "
+                                  f"coefficients with 32-bit integers")
     rc = _sweep_fn()(T.data_ptr(), b.data_ptr(), coef.data_ptr(),
                      out.data_ptr(), n // (L * NY * NX), L, NY, NX, color,
                      _build.stream(dev))

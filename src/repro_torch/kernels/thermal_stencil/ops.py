@@ -9,7 +9,10 @@ tensor on the CPU each runs its plain version
 CUDA tensor it launches its hand-written kernel in
 ``csrc/thermal_stencil.cu`` (which replace the TPU kernels
 ``apply_operator_fields_kernel`` and ``apply_operator_kernel`` of the
-reference package) or raises — it never falls back.  Each wrapper's
+reference package) or raises — it never falls back.  A shape a kernel
+cannot take (past its 32-bit indices or its grid), which the reference
+runs, raises ``NotImplementedError``; a bad argument raises
+``ValueError``.  Each wrapper's
 ``.launches`` counts its kernel launches (``apply_operator.launches``
 counts the uniform kernel's, whichever of its two entries launched it).
 
@@ -139,8 +142,8 @@ def apply_operator_fields(T: torch.Tensor, F: dict, *, block_y: int = 32,
     if n == 0:
         return y
     if 7 * n >= 2 ** 31:
-        raise ValueError(f"{n} cells: the kernel indexes the pack with "
-                         f"32-bit integers")
+        raise NotImplementedError(f"{n} cells: the kernel indexes the "
+                                  f"pack with 32-bit integers")
     rc = _fields_fn()(T.data_ptr(), F.data.data_ptr(), y.data_ptr(), n,
                       *F.layers_y_x, _build.stream(F.device_index))
     if rc:
@@ -291,9 +294,9 @@ def _uniform_dims(shape, n_layers: int) -> tuple:
     if n == 0:
         return ()
     if n >= 2 ** 31 or B * L > 65535 or NY > 8 * 65535:
-        raise ValueError(f"T {tuple(shape)}: the kernel indexes cells with "
-                         f"32-bit integers and takes at most 65535 planes "
-                         f"and 8 * 65535 rows")
+        raise NotImplementedError(
+            f"T {tuple(shape)}: the kernel indexes cells with 32-bit "
+            f"integers and takes at most 65535 planes and 8 * 65535 rows")
     return B, L, NY, NX
 
 

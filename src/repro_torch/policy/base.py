@@ -10,7 +10,10 @@ branch on a tensor, no ``.item()``.
 Contract (one call per trace interval, for the whole case batch):
 
 ``init_state(n_layers=None)``
-    The controller's carry (``()`` for stateless controllers).
+    The controller's carry (``()`` for stateless controllers).  It knows
+    neither the batch nor the device, so a stateful controller returns
+    Python numbers here and its first ``act`` broadcasts them to ``[B]``
+    tensors on the batch's device: every case owns its state.
 
 ``act(state, ctx) -> (state', f_power, f_perf)``
     ``ctx`` is a :class:`PolicyContext` of *measured* (start-of-interval)

@@ -40,10 +40,10 @@ Where the API differs from the reference:
   ``"cuda"``).
 - Not ported yet, and rejected where asked for: ``dt_scale`` (the
   variable-step replay; once ported it must refuse ``solver="mg"`` with
-  the reference's ``ValueError``), ``n_shards``, sensor faults
-  (``FeedbackParams.faults``), policies other than :class:`RampPolicy`,
-  ``stack_power_frames``, ``closed_loop_sharded`` and the ``obs``
-  telemetry spans (ROADMAP Queue 1).
+  the reference's ``ValueError``; ROADMAP Queue 1, item 2.1), sensor
+  faults (``FeedbackParams.faults``, item 2.3) and ``n_shards`` (item
+  2.5).  ``stack_power_frames`` and ``closed_loop_sharded`` are not
+  ported either.
 """
 from __future__ import annotations
 
@@ -53,7 +53,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core import cosim
 from repro_torch.core import models as M
 from repro_torch.core import thermal
@@ -70,9 +70,10 @@ from repro_torch.stack.spec import (DRAM, LOGIC, PAPER_STACK, StackParams,
 class FeedbackParams:
     """Feedback-loop constants.
 
-    ``policy`` is None (the classic linear ramp built from the ``dtm_*``
-    fields) or a :class:`RampPolicy`; ``faults`` must be None.  Other
-    controllers and sensor faults are not ported yet and raise.
+    ``policy`` selects the DTM/DVFS controller (``repro_torch.policy``);
+    None resolves to the classic linear ramp built from the ``dtm_*``
+    fields.  ``faults`` must be None: sensor faults are not ported yet
+    and raise.
     """
     leak_beta: float = 0.012     # 1/K exponential leakage slope (~2x / 60 K)
     t_ref_C: float = AMBIENT_C   # leakage reference temperature
@@ -97,14 +98,10 @@ class FeedbackParams:
         if self.dtm_ramp_C < 0:
             raise ValueError("dtm_ramp_C must be >= 0 (0 = step trip); "
                              f"got {self.dtm_ramp_C!r}")
-        if self.policy is not None and not isinstance(self.policy,
-                                                      RampPolicy):
-            raise NotImplementedError(
-                f"policy {type(self.policy).__name__} is not ported yet; "
-                "only RampPolicy (ROADMAP Queue 1, item 2)")
         if self.faults is not None:
             raise NotImplementedError(
-                "sensor faults are not ported yet (ROADMAP Queue 1, item 2)")
+                "sensor faults are not ported yet (ROADMAP Queue 1, "
+                "item 2.3)")
 
     def resolved_policy(self) -> Policy:
         """The controller the replay actually runs."""
@@ -193,11 +190,11 @@ def _check_unported(solver: str, dt_scale=None, n_shards=None) -> None:
     if dt_scale is not None:
         raise NotImplementedError(
             "dt_scale (the variable-step replay) is not ported yet "
-            "(ROADMAP Queue 1, item 2)")
+            "(ROADMAP Queue 1, item 2.1)")
     if n_shards:
         raise NotImplementedError(
             "n_shards (the sharded case batch) is not ported yet "
-            "(ROADMAP Queue 1, item 2)")
+            "(ROADMAP Queue 1, item 2.5)")
 
 
 def closed_loop_replay(dyn_frames, leak0, refresh0, logic_mask, F: dict,
@@ -434,6 +431,23 @@ def _batch(xs, dev: torch.device) -> torch.Tensor:
                         .to(dev, torch.float32) for x in xs])
 
 
+def _replay_telemetry(fb: FeedbackParams, res: np.ndarray,
+                      thr: np.ndarray) -> None:
+    """The reference's ``feedback/*`` and ``policy/<name>/*`` metrics of
+    one replay, from its residuals and duties ``[B, T]`` on the host."""
+    res_h, thr_h = res.astype(np.float64), thr.astype(np.float64)
+    n_cases, n_int = res_h.shape
+    obs.count("feedback/intervals", n_cases * n_int)
+    obs.count("feedback/picard_iterations", n_cases * n_int * fb.n_picard)
+    obs.count("feedback/throttled_intervals", int((thr_h < 1.0).sum()))
+    obs.observe_many("feedback/picard_residual_C", res_h.max(axis=1))
+    obs.observe_many("feedback/throttle_duty", thr_h.mean(axis=1))
+    pol = fb.resolved_policy()
+    obs.observe_many(f"policy/{pol.name}/duty", thr_h.ravel())
+    for op, n in (pol.residency(thr_h) or {}).items():
+        obs.count(f"policy/{pol.name}/residency/{op}", n)
+
+
 def replay_cases(cases, spec: StackSpec, fb: FeedbackParams, grid_n: int,
                  interval_dt: float, *, theta: float = 1.0,
                  steps_per_interval: int = 2, n_cg: int = 40,
@@ -454,16 +468,20 @@ def replay_cases(cases, spec: StackSpec, fb: FeedbackParams, grid_n: int,
     margin = grid_n // 4 if margin is None else margin
     labels = [label for label, _ in cases]
     dyns, leaks, refs, masks, Fs, caps = zip(*(leaves for _, leaves in cases))
-    Fb = stencil_ops.pack_fields(
-        {k: _batch([F[k] for F in Fs], dev) for k in Fs[0]})
-    out = closed_loop_batch(
-        _batch(dyns, dev), _batch(leaks, dev), _batch(refs, dev),
-        _batch(masks, dev), Fb, _batch(caps, dev), interval_dt, theta,
-        fb=fb, die_n=grid_n, n_die=spec.n_die_layers,
-        steps_per_interval=steps_per_interval, n_cg=n_cg, margin=margin,
-        solver=solver, n_mg=n_mg)
-    _, peaks, mins, res, thr, ref_W, leak_W, dyn_W = (o.cpu().numpy()
-                                                       for o in out)
+    with obs.span("feedback/replay", cases=len(labels), grid_n=grid_n,
+                  solver=solver, n_shards=0):
+        Fb = stencil_ops.pack_fields(
+            {k: _batch([F[k] for F in Fs], dev) for k in Fs[0]})
+        out = closed_loop_batch(
+            _batch(dyns, dev), _batch(leaks, dev), _batch(refs, dev),
+            _batch(masks, dev), Fb, _batch(caps, dev), interval_dt, theta,
+            fb=fb, die_n=grid_n, n_die=spec.n_die_layers,
+            steps_per_interval=steps_per_interval, n_cg=n_cg,
+            margin=margin, solver=solver, n_mg=n_mg)
+        _, peaks, mins, res, thr, ref_W, leak_W, dyn_W = (o.cpu().numpy()
+                                                           for o in out)
+    if obs.is_enabled():
+        _replay_telemetry(fb, res, thr)
     base_ref = dram.DRAMFloorplan(die_w_mm=1.0).base_refresh_W() \
         * len(spec.dram_layers)
     return {

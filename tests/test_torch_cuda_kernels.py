@@ -171,8 +171,21 @@ def test_smoother_kernel_rejects_what_it_does_not_take(cuda):
         mg_ops.rb_line_sweep(T, b, F, d.cpu(), 0)
     big = torch.zeros((mg_ops.MAX_LAYERS + 1, 4, 4), device=cuda)
     Fb = {k: torch.zeros_like(big) for k in st_ops.FIELD_KEYS}
-    with pytest.raises(ValueError, match="layers"):
+    with pytest.raises(NotImplementedError, match="layers"):
         mg_ops.rb_line_sweep(big, big, Fb, 0.0, 1)
+
+
+def test_sweep_past_the_smoother_layer_cap_raises(cuda, tmp_path):
+    """A 12-die stack (17 layers) with the mg inner solve is past the
+    smoother kernel's 16 layers: the sweep raises instead of demoting the
+    group to FAILED rows, and caches nothing."""
+    from repro_torch.sweep import SweepSpec, cache, run_sweep
+    spec = SweepSpec(workloads=("hist",), sizes=(4096,), n_dram=(12,),
+                     grid_n=8, n_intervals=2, steps_per_interval=1,
+                     n_cg=5, solver="mg")
+    with pytest.raises(NotImplementedError, match="17 layers"):
+        run_sweep(spec, cache_dir=tmp_path, device="cuda")
+    assert not cache.path_for(spec, tmp_path, device="cuda").exists()
 
 
 @pytest.mark.parametrize("shape", [(5, 384, 384), (5, 64, 64), (7, 40, 24),

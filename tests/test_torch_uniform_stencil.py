@@ -115,9 +115,9 @@ def test_kernel_dims_are_checked_once_a_shape():
     assert tops._uniform_dims(torch.Size((0, 5, 7, 9)), 5) == ()
     with pytest.raises(ValueError, match="L = 4"):
         tops._uniform_dims(torch.Size((5, 8, 8)), 4)
-    with pytest.raises(ValueError, match="32-bit"):
+    with pytest.raises(NotImplementedError, match="32-bit"):
         tops._uniform_dims(torch.Size((4096, 8, 256, 256)), 8)
-    with pytest.raises(ValueError, match="65535 planes"):
+    with pytest.raises(NotImplementedError, match="65535 planes"):
         tops._uniform_dims(torch.Size((20000, 4, 2, 2)), 4)
 
 
