@@ -140,9 +140,36 @@ these phases, each printing one line with its result and seconds:
     and every maximum DRAM peak within ``PEAK_TOL_C``, each policy's
     slowdown, peak and energy per work beside the reference's, and the
     headline: ``sort/N1048576/dram2`` on the AP BLOCKED under ``ramp``
-    and OK under ``perdie``; its kernels checked at its shapes as in 20.
+    and OK under ``perdie``; its kernels checked at its shapes as in 20;
+22. the open-loop co-simulation, ``cosim.run_cosim(("dmm", "fft", "bs"),
+    grid_n=32, n_intervals=64, t_end=0.25)`` (6 design points in one
+    batch): every ``peak_C`` and ``min_C`` within ``PEAK_TOL_C`` of the
+    JAX reference's, ``time_above`` and ``crossing_time`` equal, and the
+    converged twin (``n_cg=120``) within ``TWIN_TOL_C``;
+23. the coarsened variable-step replay on ``dram_on_logic(2)`` at
+    ``grid_n=24``: 384 base intervals (8 plateaus plus jitter below the
+    tolerance), ``coarsen_plan(tol=0.1, max_merge=16).pad_to(48)``; a
+    ``dt_scale`` of ones bit-identical to the fixed-step replay; the
+    coarsened peak error within ``tol x dc_peak_rise_C`` with feedback
+    disabled and twice it with feedback on; every replay within
+    ``PEAK_TOL_C`` of JAX's;
+24. ``benchmarks/bench_faults.py``'s grid (sort/ap and dmm/simd on 2 DRAM
+    dies; none, stuck and dropout sensors x the naive per-die and the
+    guarded policy) at its own size (grid 8, 16 intervals) and at grid 24
+    with 48 intervals: every verdict and ``n_guard_rescued`` the
+    reference's, peaks within ``PEAK_TOL_C`` (or, recorded, the converged
+    twin within ``FAULT_TWIN_TOL_C``); the ``poison_solver("mg")`` fallback
+    with the reference's ``thermal/fallback/*`` counts; the power spike;
+25. deep stacks: the smoother's streaming path (17, 21 and 32 layers) bit
+    for bit at the mg replay's 36^2 level and the 384^2 steady grid, timed
+    beside its bound; steady mg and mgcg on ``dram_on_logic(12)`` and
+    ``(16)`` at 256^2 within ``STEADY_TOL_C`` of JAX's maxima; the quick
+    sweep with ``solver="mg"`` on 12 DRAM dies, every verdict JAX's.
+Phases 22-25 read their parameters and the JAX reference's values from
+``tools/chip_reference.json`` (``tools/chip_reference.py``), and rerun
+every kernel they launched on the inputs they gave it, as in 20.
 
-Phases 5, 9-12, 14-16 and 18-21 each set every kernel's launch counter
+Phases 5, 9-12, 14-16 and 18-25 each set every kernel's launch counter
 to 0 just before they drive their path and read the counters just after;
 a kernel of the path that was not launched fails the phase.  The model's
 entry points (``forward``, ``prefill``, ``decode_step``) and phase 17's
@@ -1807,8 +1834,8 @@ def serve_reference(results):
 #: ``benchmarks/bench_sweep.py``'s ``full_spec()`` and ``quick_spec()``
 #: (pcg, and the quick one with mg) and ``benchmarks/bench_policy.py``'s
 #: ``quick_spec()`` and ``full_spec()``, as ``SweepSpec`` arguments.  The
-#: policy specs sweep every registered policy but "guarded", whose
-#: sensor-fault wrapper is not ported (``ALL_POLICIES``).
+#: policy specs sweep every registered policy but "guarded"
+#: (``ALL_POLICIES``), which phase 24 drives under sensor faults.
 ALL_POLICIES = "all but guarded"
 SWEEP_SPECS = {
     "sweep_full": dict(workloads=("dmm", "sort", "knn", "hist"),
@@ -2224,8 +2251,8 @@ def _sweep_spec(key: str):
     return SweepSpec(**kw)
 
 #: where the sweep's kernels are called from: (module, the name under
-#: which it holds the kernel's module, the launch counter's name, the
-#: wrapper it calls).  The smoother is called through multigrid's
+#: which it holds the kernel's module, or None where it holds the wrapper
+#: itself, the launch counter's name, the wrapper it calls).  The smoother is called through multigrid's
 #: ``_smooth`` (``rb_line_sweep`` is bound there as a default argument),
 #: which runs one launch a colour.
 SWEEP_CALL_SITES = (
@@ -2237,6 +2264,10 @@ SWEEP_CALL_SITES = (
     ("repro_torch.core.engine", "mk_ops", "ap_megakernel", "run_group"),
     ("repro_torch.workloads._device", "mk_ops", "ap_megakernel",
      "run_group"),
+    ("repro_torch.core.cosim", "stencil_ops", "thermal_stencil",
+     "apply_operator_fields"),
+    ("repro_torch.core.thermal", None, "thermal_stencil",
+     "apply_operator_fields"),
 )
 
 
@@ -2309,6 +2340,11 @@ class SweepRecorder:
         self._undo = []
         for site, attr, kernel, name in SWEEP_CALL_SITES:
             mod = importlib.import_module(site)
+            if attr is None:
+                fn = getattr(mod, name)
+                self._undo.append((mod, name, fn))
+                setattr(mod, name, self._record(kernel, fn))
+                continue
             kmod = getattr(mod, attr)
             self._undo.append((mod, attr, kmod))
             setattr(mod, attr, _StandIn(kmod, **{name: self._record(
@@ -2381,15 +2417,27 @@ class SweepRecorder:
                                 2 * 23.0 * cells / 2)
             return None, None
 
+        def same(g, w) -> bool:
+            """Bit for bit, a NaN where the other has one (a replay that
+            runs away, or a sensor fault's NaN, hands NaNs on)."""
+            if torch.equal(g, w):
+                return True
+            return g.is_floating_point() and torch.equal(
+                torch.isnan(g), torch.isnan(w)) and torch.equal(
+                torch.nan_to_num(g), torch.nan_to_num(w))
+
         out: dict = {}
         for (kernel, shape), (n, args, kw) in self.calls.items():
             run, plain = pair(kernel, args, kw)
             got, want = run(), plain()
             torch.cuda.synchronize()
-            check(all(torch.isfinite(g).all().item() for g in got
-                      if g.is_floating_point()),
-                  f"{what}: {kernel} output not finite at {shape}")
-            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+            finite_in = all(torch.isfinite(a).all().item() for a in args[:2]
+                            if torch.is_tensor(a) and a.is_floating_point())
+            check(not finite_in or all(
+                torch.isfinite(g).all().item() for g in got
+                if g.is_floating_point()),
+                f"{what}: {kernel} output not finite at {shape}")
+            check(all(same(g, w) for g, w in zip(got, want)),
                   f"{what}: {kernel} differs from its plain version on "
                   f"the inputs the sweep gave it at {shape}")
             o = out.setdefault(kernel, dict(shapes=0, calls=0,
@@ -2698,6 +2746,527 @@ def policy_sweep(results):
 
 
 # ---------------------------------------------------------------------------
+# phases 22-25: the open-loop co-simulation, the coarsened replay, sensor
+# faults and deep stacks
+# ---------------------------------------------------------------------------
+
+#: where the JAX reference's values for phases 22-25 live: written by
+#: ``tools/chip_reference.py`` (the reference package on the CPU), with the
+#: parameters of each phase, which the phases read from it
+CHIP_REFERENCE = ROOT / "tools" / "chip_reference.json"
+_CHIP_REF: dict = {}
+
+
+def _chip_reference() -> dict:
+    if not _CHIP_REF:
+        _CHIP_REF.update(json.loads(CHIP_REFERENCE.read_text()))
+    return _CHIP_REF
+
+
+#: the converged twin (n_cg=120) of a phase-22 case or a phase-24 cell,
+#: held to the reference's twin where the unconverged CG parts the two
+#: packages by more than PEAK_TOL_C (ROADMAP Queue 3, item 7)
+TWIN_TOL_C = 1e-3
+#: the twins of phase 24's fault replays (DTM and the guard's hold act on
+#: each interval's sample, so a converged twin is held a little wider)
+FAULT_TWIN_TOL_C = 1e-2
+
+
+def _recorded(rec: "SweepRecorder", fn):
+    """``fn()`` with every launch counter 0 before it and its kernel calls
+    recorded in ``rec`` (every launch must have been recorded).  Returns
+    (fn's result, seconds, launches)."""
+    import torch
+    before = rec.counts()
+    with rec:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    seen = rec.counts()
+    for kernel in ("thermal_stencil", "ap_match", "ap_megakernel",
+                   "mg_smooth"):
+        n = seen.get(kernel, 0) - before.get(kernel, 0)
+        check(n >= launches[kernel], f"{launches[kernel]} {kernel} "
+              f"launches, {n} recorded at the call sites")
+    return out, seconds, launches
+
+
+@phase("22 co-simulation")
+def cosim_path(results):
+    import numpy as np
+    from repro_torch.core import cosim
+    ref = _chip_reference()["cosim"]
+    p = ref["params"]
+    kw = dict(grid_n=p["grid_n"], n_intervals=p["n_intervals"],
+              t_end=p["t_end"], steps_per_interval=p["steps_per_interval"],
+              device="cuda")
+    rec = SweepRecorder()
+    cosim._ap_workload_trace.cache_clear()
+    out, sec, launches = _recorded(rec, lambda: cosim.run_cosim(
+        tuple(p["workloads"]), n_cg=p["n_cg"], **kw))
+    check_launched(launches, ("thermal_stencil", "ap_match"),
+                   "the co-simulation")
+    twin, twin_sec, twin_launches = _recorded(rec, lambda: cosim.run_cosim(
+        tuple(p["workloads"]), n_cg=p["twin_n_cg"], **kw))
+    say("  case       max peak C  max |dpeak| C  max |dmin| C  twin |d| C"
+        "  time above 85C s (per layer)  crossing equal")
+    rows, faults = {}, []
+    for label, r in ref["cases"].items():
+        w, machine = label.split("/")
+        g, gt = out[w][machine], twin[w][machine]
+        check(bool(np.isfinite(g.peak_C).all() and np.isfinite(g.min_C)
+                   .all()), f"{label}: not finite")
+        dpk = float(np.abs(g.peak_C - np.array(r["peak_C"])).max())
+        dmn = float(np.abs(g.min_C - np.array(r["min_C"])).max())
+        dtw = float(np.abs(gt.peak_C - np.array(ref["twin"][label]["peak_C"]))
+                    .max())
+        above = g.time_above().tolist()
+        same_above = above == r["time_above"]
+        same_cross = [float(v) for v in g.crossing_time()] \
+            == r["crossing_time"]
+        rows[label] = dict(max_peak_C=float(g.peak_C.max()),
+                           max_abs_dpeak_C=dpk, max_abs_dmin_C=dmn,
+                           twin_max_abs_dpeak_C=dtw, time_above_s=above,
+                           time_above_equal=same_above,
+                           crossing_equal=same_cross)
+        say(f"  {label:10s} {g.peak_C.max():11.4f} {dpk:14.2e} {dmn:13.2e} "
+            f"{dtw:11.2e}  {' '.join(f'{a:.4f}' for a in above):28s}  "
+            f"{same_cross}")
+        if max(dpk, dmn) > PEAK_TOL_C:
+            faults.append(f"{label}: peaks {dpk:.4f} C, mins {dmn:.4f} C "
+                          f"from the reference (recorded exception: its "
+                          f"converged twin is held to {TWIN_TOL_C} C)")
+        check(dtw <= TWIN_TOL_C, f"{label}: converged twin {dtw:.2e} C "
+              "from the reference's")
+        check(same_above and same_cross, f"{label}: time above 85 C or "
+              "crossing time differs from the reference's")
+    for f in faults:
+        say(f"  exception: {f}")
+    checks = rec.check("co-simulation")
+    stencil_ms = checks["thermal_stencil"]["ms"]
+    say(f"  run_cosim {sec:.2f} s (its twin at n_cg={p['twin_n_cg']} "
+        f"{twin_sec:.2f} s); stencil launches {launches['thermal_stencil']},"
+        f" ap_match {launches['ap_match']}; the stencil "
+        f"{stencil_ms * 1e3:.2f} us a call at its most-called shape")
+    results["cosim"] = dict(seconds=sec, twin_seconds=twin_sec,
+                            launches=launches, twin_launches=twin_launches,
+                            cases=rows, exceptions=faults,
+                            kernel_checks=checks)
+    return launches
+
+
+def _coarsen_activity(seed: int, tol: float, n_base: int,
+                      n_plateaus: int):
+    """``tools/chip_reference.py``'s activity: plateaus plus jitter below
+    the tolerance, from ``seed`` (NumPy, as the reference made it)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    act = np.repeat(rng.uniform(0.1, 1.0, n_plateaus), n_base // n_plateaus)
+    act = act + rng.uniform(-0.3, 0.3, n_base) * tol
+    return np.clip(act, 0.0, 1.2)
+
+
+@phase("23 coarsened replay")
+def coarsened_replay(results):
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.core import cosim, thermal
+    from repro_torch.core.floorplan import MM, APFloorplan
+    from repro_torch.stack import dram, feedback
+    from repro_torch.stack.spec import PAPER_STACK, dram_on_logic
+    ref = _chip_reference()["coarsen"]
+    p = ref["params"]
+    spec = dram_on_logic(p["n_dram"])
+    act = _coarsen_activity(p["seed"], p["tol"], p["n_base"],
+                            p["n_plateaus"])
+    plan = cosim.coarsen_plan(act, p["tol"], p["max_merge"]).pad_to(
+        p["pad_to"])
+    check(plan.reps.tolist() == ref["reps"], "coarsen_plan differs from "
+          "the reference's")
+    dp = cosim.comparable_design_point("dmm")
+    fp = APFloorplan(die_w_mm=math.sqrt(dp.ap_area_mm2))
+    gn = p["grid_n"]
+    grid = thermal.Grid(die_w=fp.die_w_mm * MM, ny=gn, nx=gn,
+                        params=PAPER_STACK, spec=spec, margin=p["margin"])
+    dfp = dram.DRAMFloorplan(die_w_mm=fp.die_w_mm)
+    pmap = fp.power_map(gn, dp.ap_power_W)
+    F, cap = grid.fields("cuda"), grid.capacity_field("cuda")
+
+    def frames(a):
+        return tuple(torch.from_numpy(np.asarray(x, np.float32)).cuda()
+                     for x in feedback.stack_power_frames(
+                         spec, grid, a, pmap, fp.leakage_W(), dfp,
+                         p["traffic_bytes_per_s"]))
+    base, merged = frames(act), frames(plan.merge(act))
+
+    def replay(fr, fb, steps, dt_scale=None):
+        return feedback.closed_loop_replay(
+            *fr, F, cap, p["interval_dt"], fb=fb, die_n=gn,
+            n_die=spec.n_die_layers, steps_per_interval=steps,
+            n_cg=p["n_cg"], margin=p["margin"], dt_scale=dt_scale)
+
+    rec = SweepRecorder()
+    bound = p["tol"] * cosim.dc_peak_rise_C(base[0].amax(dim=0), F)
+    say(f"  plan: {plan.n_base} base intervals -> {plan.n_coarse} "
+        f"(ratio {plan.ratio:.1f}); dc_peak_rise_C x tol = {bound:.5f} C "
+        f"(reference {p['tol'] * ref['dc_peak_rise_C']:.5f})")
+    out, launches = {}, {}
+    for mode, fb in (("disabled", feedback.FeedbackParams.disabled()),
+                     ("feedback", feedback.FeedbackParams())):
+        exact, t_exact, launches[f"{mode}_base"] = _recorded(
+            rec, lambda: replay(base, fb, 1))
+        coarse, t_coarse, launches[f"{mode}_coarse"] = _recorded(
+            rec, lambda: replay(merged, fb, p["coarse_steps"],
+                                plan.dt_scale()))
+        check_launched(launches[f"{mode}_coarse"], ("thermal_stencil",),
+                       "the coarsened replay")
+        pk_e, pk_c = exact[1].cpu().numpy(), coarse[1].cpu().numpy()
+        err = abs(float(pk_e.max()) - float(pk_c.max()))
+        limit = bound if mode == "disabled" else 2.0 * bound
+        d_e = float(np.abs(pk_e - np.array(ref[mode]["exact_peak_C"])).max())
+        d_c = float(np.abs(pk_c - np.array(ref[mode]["coarse_peak_C"]))
+                    .max())
+        check(bool(np.isfinite(pk_e).all() and np.isfinite(pk_c).all()),
+              f"{mode}: not finite")
+        say(f"  {mode:8s}: peak error {err:.5f} C (bound {limit:.5f}, "
+            f"reference's error {ref[mode]['error_C']:.5f}); base replay "
+            f"{t_exact:.2f} s, coarse {t_coarse:.2f} s "
+            f"({t_exact / t_coarse:.1f}x); max |d| from JAX: base "
+            f"{d_e:.2e} C, coarse {d_c:.2e} C")
+        check(err <= limit, f"{mode}: coarsened peak error {err:.5f} C "
+              f"above {limit:.5f} C")
+        check(max(d_e, d_c) <= PEAK_TOL_C, f"{mode}: a replay is "
+              f"{max(d_e, d_c):.4f} C from the reference's")
+        out[mode] = dict(error_C=err, bound_C=limit, base_s=t_exact,
+                         coarse_s=t_coarse, base_vs_jax_C=d_e,
+                         coarse_vs_jax_C=d_c)
+        if mode == "disabled":
+            ones, _, launches["ones"] = _recorded(
+                rec, lambda: replay(base, fb, 1,
+                                    np.ones(plan.n_base, np.float32)))
+            same = all(torch.equal(x, y) for x, y in zip(exact, ones))
+            check(same, "dt_scale of ones is not bit-identical to the "
+                  "fixed-step replay")
+            say("  dt_scale of ones: bit-identical to the fixed-step "
+                "replay (all eight outputs)")
+    checks = rec.check("coarsened replay")
+    results["coarsen"] = dict(out, ratio=plan.ratio, launches=launches,
+                              kernel_checks=checks)
+    return {k: sum(v[k] for v in launches.values())
+            for k in next(iter(launches.values()))}
+
+
+def _fault_verdict(rep) -> str:
+    import numpy as np
+    if not np.isfinite(rep.peak_C).all():
+        return "FAILED"
+    return "OK" if rep.dram_time_above_limit_s == 0.0 else "BLOCKED"
+
+
+@phase("24 sensor faults")
+def fault_path(results):
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.core import cosim, thermal
+    from repro_torch.core import models as M
+    from repro_torch.faults import (GuardedPolicy, PowerFaultSpec,
+                                    SensorFaultSpec, inject_power_spikes,
+                                    poison_solver)
+    from repro_torch.policy import PerDiePolicy
+    from repro_torch.stack import feedback
+    from repro_torch.stack.spec import PAPER_STACK, dram_on_logic
+    ref = _chip_reference()["faults"]
+    spec = dram_on_logic(2, PAPER_STACK)
+    faults = {"none": None,
+              "stuck": SensorFaultSpec(seed=0, n_sensors=3, n_stuck=1),
+              "dropout": SensorFaultSpec(seed=0, n_sensors=3,
+                                         p_dropout=0.4)}
+    policies = {"naive": PerDiePolicy(),
+                "guarded": GuardedPolicy(inner=PerDiePolicy())}
+    rec = SweepRecorder()
+    out, launches_by, exceptions = {}, {}, []
+    for size in ("spec", "wide"):
+        r = ref[size]
+        gn, n_int, n_cg = (r["params"][k] for k in ("grid_n", "n_intervals",
+                                                    "n_cg"))
+        margin, dt = gn // 4, 0.25 / n_int
+
+        def capture():
+            cases = []
+            for wl, mc in (("sort", "ap"), ("dmm", "simd")):
+                dp = cosim.comparable_design_point(wl, 2 ** 20)
+                trace = cosim.ap_workload_trace(
+                    wl, n_int, cosim.trace_elems(2 ** 20), device="cuda") \
+                    if mc == "ap" else cosim.simd_phase_trace(
+                        M.WORKLOADS[wl], dp, n_int)
+                cases.append((f"{wl}/{mc}", feedback.assemble_case(
+                    dp, wl, mc, spec, PAPER_STACK, gn, trace, margin,
+                    device="cuda")))
+            return cases
+        cosim._ap_workload_trace.cache_clear()
+        cases, cap_s, launches_by[f"{size}_capture"] = _recorded(rec,
+                                                                 capture)
+        cells, verdicts, t_grid = {}, {}, 0.0
+        say(f"  {size}: grid {gn}, {n_int} intervals, n_cg {n_cg} "
+            f"(capture {cap_s:.2f} s)")
+        say("    cell                         verdict (JAX)      DRAM peak C"
+            " (JAX)          slowdown (JAX)")
+        for fname, fspec in faults.items():
+            for pname, pol in policies.items():
+                fb = feedback.FeedbackParams(policy=pol, faults=fspec)
+                reps, sec, launches_by[f"{size}/{fname}/{pname}"] = \
+                    _recorded(rec, lambda: feedback.replay_cases(
+                        cases, spec, fb, gn, dt, steps_per_interval=1,
+                        n_cg=n_cg, margin=margin, device="cuda"))
+                t_grid += sec
+                for label, rep in reps.items():
+                    key = f"{label}/{fname}/{pname}"
+                    want = r["cells"][key]
+                    v = _fault_verdict(rep)
+                    verdicts[(label, fname, pname)] = v
+                    peak = float(rep.dram_peak_C.max())
+                    slow = float(rep.dtm_slowdown)
+                    cells[key] = dict(verdict=v, dram_peak_C=peak,
+                                      slowdown=slow)
+                    say(f"    {key:28s} {v:7s} ({want['verdict']:7s})  "
+                        f"{peak:9.4f} ({want['dram_peak_C']:9.4f})  "
+                        f"{slow:8.4f} ({want['slowdown']:8.4f})")
+                    check(v == want["verdict"], f"{size} {key}: verdict "
+                          f"{v}, the reference's {want['verdict']}")
+                    if v != "FAILED" and abs(peak - want["dram_peak_C"]) \
+                            > PEAK_TOL_C:
+                        twin = feedback.replay_cases(
+                            [c for c in cases if c[0] == label], spec, fb,
+                            gn, dt, steps_per_interval=1,
+                            n_cg=r["params"]["twin_n_cg"], margin=margin,
+                            device="cuda")[label]
+                        d_twin = abs(float(twin.dram_peak_C.max())
+                                     - want["twin_dram_peak_C"])
+                        delta = peak - want["dram_peak_C"]
+                        exceptions.append(
+                            f"{size} {key}: peak {delta:+.4f} C from JAX at "
+                            f"n_cg={n_cg}; converged twin {d_twin:.2e} C")
+                        check(_fault_verdict(twin) == want["twin_verdict"]
+                              and d_twin <= FAULT_TWIN_TOL_C,
+                              f"{size} {key}: converged twin {d_twin:.4f} C"
+                              " from the reference's")
+        rescued = sum(1 for (label, f, p), v in verdicts.items()
+                      if f != "none" and p == "naive" and v != "OK"
+                      and verdicts[(label, f, "guarded")] == "OK")
+        say(f"    n_guard_rescued {rescued} (JAX {r['n_guard_rescued']}); "
+            f"12 replays {t_grid:.2f} s")
+        check(rescued >= 1 and rescued == r["n_guard_rescued"],
+              f"{size}: n_guard_rescued {rescued}, the reference's "
+              f"{r['n_guard_rescued']}")
+        label, (dyn, l0, r0, lm, F, cap3) = cases[0]
+        spiked = inject_power_spikes(
+            dyn, PowerFaultSpec(seed=0, n_spikes=2, magnitude=3.0))
+        fb = feedback.FeedbackParams(policy=policies["naive"])
+        spike = [float(feedback.replay_cases(
+            [(label, (d, l0, r0, lm, F, cap3))], spec, fb, gn, dt,
+            steps_per_interval=1, n_cg=k, margin=margin,
+            device="cuda")[label].dram_peak_C.max())
+            for d, k in ((dyn, n_cg), (spiked, n_cg),
+                         (spiked, r["params"]["twin_n_cg"]))]
+        d_spike = abs(spike[2] - r["spike_twin_peak_C"])
+        j0, j1 = r["spike_peak_C"]
+        say(f"    power spike (2 intervals x3): sort/ap DRAM peak "
+            f"{spike[0]:.4f} -> {spike[1]:.4f} C (JAX {j0:.4f} -> "
+            f"{j1:.4f}); converged twin {d_spike:.2e} C from JAX's")
+        check(spike[1] > spike[0], "the power spike does not raise the peak")
+        check(d_spike <= TWIN_TOL_C, f"spiked twin {d_spike:.4f} C from "
+              "the reference's")
+        out[size] = dict(cells=cells, n_guard_rescued=rescued,
+                         replay_s=t_grid, spike_peak_C=spike)
+    for e in exceptions:
+        say(f"  exception: {e}")
+    # the solver fallback chain, its counters as the reference's
+    g = thermal.Grid(die_w=3e-3, ny=16, nx=16, margin=4)
+    pw = np.zeros((g.n_die_layers, 16, 16), np.float32)
+    pw[0, 4:12, 4:12] = 0.05
+    obs.enable(reset=True)
+
+    def poisoned():
+        with poison_solver("mg"):
+            return thermal.steady_state_stats(pw, g, solver="mg",
+                                              device="cuda")
+    (_, stats), _, launches_by["fallback"] = _recorded(rec, poisoned)
+    counters = {k: v for k, v in obs.snapshot()["counters"].items()
+                if k.startswith("thermal/fallback/")}
+    obs.disable()
+    obs.reset()
+    want = ref["fallback"]
+    say(f"  fallback: mg poisoned -> solved_by={stats['solved_by']} after "
+        f"{stats['attempts']} attempts; counters {counters}")
+    check(stats["solved_by"] == want["solved_by"]
+          and stats["attempts"] == want["attempts"]
+          and counters == want["counters"],
+          f"fallback {stats['solved_by']}/{stats['attempts']} {counters}, "
+          f"the reference's {want}")
+    check_launched(launches_by["fallback"], ("mg_smooth",
+                                             "thermal_stencil"),
+                   "the fallback chain")
+    checks = rec.check("sensor faults")
+    results["faults"] = dict(out, exceptions=exceptions, fallback=dict(
+        stats, counters=counters), launches=launches_by,
+        kernel_checks=checks)
+    total: dict = {}
+    for v in launches_by.values():
+        for k, n in v.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def _deep_smooth_cases() -> dict:
+    """Smoother levels of deep stacks on the card: the mg replay's finest
+    level (six cases, 36^2, ``d_extra = cap3/dt``) and the 256^2 steady
+    grid's (384^2, ``d_extra = 0``) for 12, 16 and 27 DRAM dies on a
+    logic die: 17, 21 and 32 layers."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.core import cosim, multigrid, thermal
+    from repro_torch.core.floorplan import MM
+    from repro_torch.stack.spec import dram_on_logic
+    out = {}
+    for n_dram in (12, 16, 27):
+        spec = dram_on_logic(n_dram)
+        grids = [thermal.Grid(die_w=math.sqrt(a) * MM, ny=24, nx=24,
+                              spec=spec, margin=6)
+                 for w in ("dmm", "fft", "bs")
+                 for dp in (cosim.comparable_design_point(w),)
+                 for a in (dp.ap_area_mm2, dp.simd_area_mm2)]
+        Fs = [g.fields("cuda") for g in grids]
+        F = {k: torch.stack([f[k] for f in Fs]) for k in Fs[0]}
+        cap = torch.stack([g.capacity_field("cuda") for g in grids])
+        big = thermal.Grid(die_w=5e-3, ny=256, nx=256, margin=64,
+                           spec=spec).fields("cuda")
+        for i, (label, (Fl, dl)) in enumerate((
+                ("36", multigrid.build_levels(F, cap / (0.25 / 48 / 2))[0]),
+                ("384", multigrid.build_levels(big, 0.0)[0]))):
+            rng = np.random.default_rng(200 + 10 * n_dram + i)
+            shape = tuple(Fl["g_pkg"].shape)
+            T = torch.from_numpy(rng.normal(50.0, 20.0, shape)
+                                 .astype(np.float32)).cuda()
+            b = torch.from_numpy(rng.uniform(0.0, 1e-2, shape)
+                                 .astype(np.float32)).cuda()
+            out[f"L{n_dram + 5}_{label}"] = (T, b, Fl, dl)
+    return out
+
+
+@phase("25 deep stacks")
+def deep_stacks(results):
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.core import thermal
+    from repro_torch.kernels.mg_smooth import ops
+    from repro_torch.stack.spec import dram_on_logic
+    from repro_torch.sweep import SweepSpec, run_sweep
+    ref = _chip_reference()["deep"]
+    smooth = {}
+    for label, (T, b, F, d) in _deep_smooth_cases().items():
+        check(T.shape[-3] > ops.MAX_LAYERS, f"{label}: not a deep column")
+        for color in (0, 1):
+            got = ops.rb_line_sweep(T, b, F, d, color)
+            want = ops.rb_line_sweep_plain(T, b, F, d, color)
+            torch.cuda.synchronize()
+            check(torch.isfinite(got).all().item(), "smoother not finite")
+            check(torch.equal(got, want), f"deep smoother differs from "
+                  f"plain at {tuple(T.shape)}, colour {color}: max |diff| "
+                  f"= {float((got - want).abs().max())}")
+        cells = T.numel()
+        b_ms, b_by = bound_ms(8.0 * cells + 36.0 * (cells // 2),
+                              23.0 * (cells // 2))
+        reps = 200 if cells < 10 ** 6 else 20
+        ms = cuda_ms(lambda: ops.rb_line_sweep(T, b, F, d, 0), reps)
+        plain = cuda_ms(lambda: ops.rb_line_sweep_plain(T, b, F, d, 0), 5)
+        smooth[label] = dict(shape=list(T.shape), max_abs_err=0.0, ms=ms,
+                             plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None)
+        say(f"  deep rb_line_sweep {tuple(T.shape)}: exact, both colours; "
+            f"kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, bound "
+            f"{b_ms * 1e3:.2f} us ({b_by})")
+    rec = SweepRecorder()
+    steady, launches_by = {}, {}
+    say("  stack     solver  iterations  seconds   max C      reference")
+    for n_dram in ref["params"]["n_dram"]:
+        spec = dram_on_logic(n_dram)
+        n = ref["params"]["n"]
+        grid = thermal.Grid(die_w=ref["params"]["die_w"], ny=n, nx=n,
+                            margin=n // 4, spec=spec)
+        power = np.zeros((grid.n_die_layers, n, n), np.float32)
+        power[list(spec.logic_layers)] = ref["params"]["power_W"] / (
+            len(spec.logic_layers) * n * n)
+        temps = {}
+        for s in ("mg", "mgcg"):
+            (T, st), sec, launches_by[f"steady_{n_dram}_{s}"] = _recorded(
+                rec, lambda: thermal.steady_state_stats(
+                    power, grid, solver=s, device="cuda"))
+            check_launched(launches_by[f"steady_{n_dram}_{s}"],
+                           ("mg_smooth", "thermal_stencil"),
+                           f"steady {s} on {n_dram} DRAM dies")
+            want = ref["steady"][f"{n_dram}/{s}"]["max_C"]
+            temps[s] = T
+            mx = float(T.max())
+            steady[f"{n_dram}/{s}"] = dict(max_C=mx, reference_C=want,
+                                           iterations=st["iterations"],
+                                           seconds=sec,
+                                           rel_residual=st["rel_residual"])
+            say(f"  dram{n_dram:<5d} {s:6s} {st['iterations']:10d} "
+                f"{sec:8.3f} {mx:9.4f} {want:10.4f}")
+            check(abs(mx - want) <= STEADY_TOL_C, f"steady {s} on {n_dram}"
+                  f" DRAM dies: max {mx:.4f} C, the reference's {want:.4f}")
+            check(st["rel_residual"] <= thermal.HEALTH_RTOL,
+                  f"steady {s} on {n_dram} dies: residual "
+                  f"{st['rel_residual']:.2e}")
+        diff = float((temps["mg"] - temps["mgcg"]).abs().max())
+        check(diff <= 1e-3, f"{n_dram} dies: mg and mgcg {diff:.2e} C apart")
+    sw = ref["sweep"]
+    kw = {k: tuple(v) if isinstance(v, list) else v
+          for k, v in sw["params"].items()}
+    sspec = SweepSpec(**kw)
+    check(sspec.content_hash() == sw["content_hash"], "the deep sweep's "
+          "content hash is not the reference's")
+    from repro_torch.core import cosim
+    cosim._ap_workload_trace.cache_clear()
+    res, sec, launches_by["sweep_mg_dram12"] = _recorded(
+        rec, lambda: run_sweep(sspec, use_cache=False, device="cuda"))
+    check_launched(launches_by["sweep_mg_dram12"], ("mg_smooth",
+                                                    "thermal_stencil"),
+                   "the mg sweep on 12 DRAM dies")
+    rows = {}
+    for r in res.records:
+        want = sw["records"][r.label]
+        ref_failed = math.isnan(want["dram_peak_C"])
+        peak = float(r.report.dram_peak_C.max())
+        v = "FAILED" if r.failed else ("OK" if r.verdict_ok else "BLOCKED")
+        rv = "FAILED" if ref_failed else want["verdict"]
+        rows[r.label] = dict(verdict=v, reference_verdict=rv,
+                             dram_peak_C=peak,
+                             reference_C=want["dram_peak_C"])
+        check(v == rv, f"{r.label}: {v}, the reference's {rv}")
+        if not ref_failed:
+            check(abs(peak - want["dram_peak_C"]) <= PEAK_TOL_C,
+                  f"{r.label}: peak {peak:.4f} C, the reference's "
+                  f"{want['dram_peak_C']:.4f}")
+    say(f"  mg sweep on 12 DRAM dies (17 layers): {len(rows)} records in "
+        f"{sec:.2f} s, every verdict the reference's ("
+        + ", ".join(f"{k.split('/')[0]}/{k.split('/')[1]}/"
+                    f"{k.split('/')[-1]} {v['verdict']}"
+                    for k, v in rows.items()) + ")")
+    checks = rec.check("deep stacks")
+    results["deep"] = dict(smoother=smooth, steady=steady, sweep=rows,
+                           sweep_s=sec, launches=launches_by,
+                           kernel_checks=checks)
+    return launches_by
+
+
+# ---------------------------------------------------------------------------
 
 def _kernel_row(name, source, replaces, launches, r, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2754,6 +3323,13 @@ def main() -> int:
     sweep_launches = sweep_path(results)
     policy_launches = policy_sweep(results)
     sweep_launches.update(policy_launches)
+    cosim_launches = cosim_path(results)
+    coarsen_launches = coarsened_replay(results)
+    fault_launches = fault_path(results)
+    deep_launches = deep_stacks(results)
+    new_paths = {"cosim_22": cosim_launches, "coarsened_replay_23":
+                 coarsen_launches, "sensor_faults_24": fault_launches,
+                 **{f"deep_25:{k}": v for k, v in deep_launches.items()}}
 
     src = "src/repro_torch/kernels"
     ref = "src/repro/kernels"
@@ -2767,35 +3343,50 @@ def main() -> int:
         sweep_launches["sweep_quick_mg"]["mg_smooth"]
 
     def sweep_paths(name):
-        """A kernel's launches on each sweep path that launched it."""
-        return {f"sweep:{k}": v[name] for k, v in sweep_launches.items()
-                if v[name]}
+        """A kernel's launches on each sweep path that launched it, and on
+        each of phases 22-25's paths."""
+        return {**{f"sweep:{k}": v[name] for k, v in sweep_launches.items()
+                   if v[name]}, **new_path_launches(name)}
+
+    def new_path_launches(name):
+        return {k: v[name] for k, v in new_paths.items() if v.get(name)}
+
+    def new_shapes(name):
+        """A kernel's checks on phases 22-25's own inputs."""
+        return {k: results[k]["kernel_checks"][name]
+                for k in ("cosim", "coarsen", "faults", "deep")
+                if name in results[k]["kernel_checks"]}
 
     def sweep_shapes(name):
         """A kernel's phase 20-21 checks on the sweeps' own inputs."""
         return {k: results[p]["kernel_checks"][name]
                 for k, p in (("sweep", "sweep"), ("policy", "policy_sweep"))
                 if name in results[p]["kernel_checks"]}
+    by_path.update(new_path_launches("mg_smooth"))
     kernels = [
         _kernel_row("thermal_stencil.apply_operator_fields",
                     f"{src}/thermal_stencil/csrc/thermal_stencil.cu",
                     f"{ref}/thermal_stencil/kernel.py:75",
                     launches["thermal_stencil"], results["stencil_main"],
                     launches_by_path=sweep_paths("thermal_stencil"),
-                    sweep_shapes=sweep_shapes("thermal_stencil")),
+                    sweep_shapes=sweep_shapes("thermal_stencil"),
+                    new_path_shapes=new_shapes("thermal_stencil")),
         _kernel_row("ap_match.run_schedule",
                     f"{src}/ap_match/csrc/ap_match.cu",
                     f"{ref}/ap_match/kernel.py:66",
                     launches["ap_match"], results["ap_main"],
                     latency_bound_ms=results["ap_main"]["latency_bound_ms"],
                     launches_by_path=sweep_paths("ap_match"),
-                    sweep_shapes=sweep_shapes("ap_match")),
+                    sweep_shapes=sweep_shapes("ap_match"),
+                    new_path_shapes=new_shapes("ap_match")),
         _kernel_row("mg_smooth.rb_line_sweep",
                     f"{src}/mg_smooth/csrc/mg_smooth.cu",
                     f"{ref}/mg_smooth/kernel.py:76",
                     mg_launches["mg_smooth"], results["smooth_replay"],
                     launches_by_path=by_path,
-                    sweep_shapes=sweep_shapes("mg_smooth")),
+                    sweep_shapes=sweep_shapes("mg_smooth"),
+                    new_path_shapes=new_shapes("mg_smooth"),
+                    deep_path=results["deep"]["smoother"]),
         _kernel_row("thermal_stencil.apply_operator",
                     f"{src}/thermal_stencil/csrc/thermal_stencil.cu",
                     f"{ref}/thermal_stencil/kernel.py:101",

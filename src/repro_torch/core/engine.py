@@ -558,7 +558,9 @@ class APEngine:
         tables = bucket_schedule(sched)
         if self.backend in ("megakernel", "megakernel_pallas"):
             self.planes, self.tag, matched = mk_ops.run_group(
-                self.planes, self.tag, OpGroup.from_schedule(*tables))
+                self.planes, self.tag, OpGroup.from_schedule(*tables),
+                backend="pallas" if self.backend == "megakernel_pallas"
+                else "jnp")
         else:
             self.planes, matched = ap_ops.run_schedule(
                 self.planes, *schedule_tensors(*tables, self.device),

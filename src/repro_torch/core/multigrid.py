@@ -46,13 +46,15 @@ Where the port differs from the reference:
   returns NaN silently, a matrix that is not positive definite raises.
 - The tolerance loop of :func:`mg_solve_fields` checks the residual on
   the host once per cycle (the reference's ``while_loop``).
-- The reference's ``obs`` counters in ``build_levels`` are left out: the
-  port has no ``obs`` yet.
+- ``build_levels`` counts ``mg/hierarchies_built`` (and
+  ``[levels=N]``) in ``obs`` once a hierarchy built, where the reference
+  counts once a trace of the jitted driver that builds it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.mg_smooth import ops as smooth_ops
 from repro_torch.kernels.thermal_stencil import ops as stencil_ops
 
@@ -141,6 +143,8 @@ def build_levels(F: dict, d_extra, min_n: int = MIN_COARSE_N) -> list:
     while True:
         ny, nx = levels[-1][0]["g_pkg"].shape[-2:]
         if ny % 2 or nx % 2 or min(ny, nx) // 2 < min_n:
+            obs.count("mg/hierarchies_built")
+            obs.count(f"mg/hierarchies_built[levels={len(levels)}]")
             return levels
         levels.append(smooth_ops.checked_level(
             *coarsen(*levels[-1], rescale_lateral=True)))

@@ -28,9 +28,13 @@ Where the port differs from the reference:
   steppers add a batch of one.  ``lax.scan``/``while_loop`` are Python
   loops; the tolerance loops (``pcg``, ``mg_solve_fields``) check the
   residual on the host once per iteration.
-- The reference's ``obs`` spans, counters and the ``with_residuals``
-  telemetry of ``transient_solve_implicit`` are left out: the port has no
-  ``obs`` yet (ROADMAP Queue 1).
+- ``obs`` records what the reference records: the ``thermal/steady``
+  span and counters, the ``thermal/fallback/*`` retries of the guarded
+  steady solve, and the ``thermal/transient`` span with its counters and
+  per-step residuals (``with_residuals``, one extra matvec a step, only
+  while ``obs`` is on).  The reference's ``thermal/retrace/
+  transient_fields`` counts JAX traces; the port traces nothing, so it
+  has no such counter.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core.constants import AMBIENT_C
 from repro_torch.kernels.thermal_stencil import ops as stencil_ops
 from repro_torch.stack.spec import (PAPER_STACK, StackParams, StackSpec,
@@ -396,7 +400,8 @@ def _solve_fields_guarded(b, F, solver: str, tol: float = 1e-8):
     backend forced down by ``repro_torch.faults.inject.poison_solver``)
     advances to the next rung of :func:`fallback_chain`.  Returns
     ``(dT, iterations, stats)`` with ``stats = {"attempts", "solved_by",
-    "rel_residual"}``.
+    "rel_residual"}``; retries are counted in ``obs`` under
+    ``thermal/fallback/*``.
     """
     from repro_torch.faults import inject
     bnorm = float(torch.linalg.vector_norm(b))
@@ -416,7 +421,14 @@ def _solve_fields_guarded(b, F, solver: str, tol: float = 1e-8):
         last = (dT, int(iters), {"attempts": i + 1, "solved_by": s,
                                  "rel_residual": resid})
         if math.isfinite(resid) and resid <= HEALTH_RTOL:
+            if i:
+                obs.count("thermal/fallback/recovered")
             return last
+        if i == 0:
+            obs.count("thermal/fallback/engaged")
+        obs.count("thermal/fallback/retries")
+        obs.count(f"thermal/fallback/unhealthy[{s}]")
+    obs.count("thermal/fallback/exhausted")
     return last
 
 
@@ -433,26 +445,31 @@ def steady_state_stats(power, grid: Grid, t_amb: float = AMBIENT_C,
     solve retries down :func:`fallback_chain`.  Non-finite power maps
     raise ``ValueError`` up front.
     """
-    F = grid.fields(device)
-    power = grid.pad_power(power, device)
-    if not bool(torch.isfinite(power).all()):
-        raise ValueError(
-            "steady_state: power map has non-finite cells; refusing "
-            "to solve — NaN temperatures would silently poison every "
-            "downstream verdict")
-    m = grid.margin
-    if m:
-        power = torch.nn.functional.pad(power, (m, m, m, m))
-    dT, iters, fstats = _solve_fields_guarded(power, F, solver, tol)
-    n_die = grid.n_die_layers
-    if m:
-        dT = dT[:n_die, m:m + grid.ny, m:m + grid.nx]
-    else:
-        dT = dT[:n_die]
-    stats = {"iterations": iters, "solver": solver,
-             "rel_residual": fstats["rel_residual"],
-             "attempts": fstats["attempts"],
-             "solved_by": fstats["solved_by"]}
+    with obs.span("thermal/steady", solver=solver,
+                  shape=f"{grid.n_layers}x{grid.dom_ny}x{grid.dom_nx}"):
+        F = grid.fields(device)
+        power = grid.pad_power(power, device)
+        if not bool(torch.isfinite(power).all()):
+            raise ValueError(
+                "steady_state: power map has non-finite cells; refusing "
+                "to solve — NaN temperatures would silently poison every "
+                "downstream verdict")
+        m = grid.margin
+        if m:
+            power = torch.nn.functional.pad(power, (m, m, m, m))
+        dT, iters, fstats = _solve_fields_guarded(power, F, solver, tol)
+        n_die = grid.n_die_layers
+        if m:
+            dT = dT[:n_die, m:m + grid.ny, m:m + grid.nx]
+        else:
+            dT = dT[:n_die]
+        stats = {"iterations": iters, "solver": solver,
+                 "rel_residual": fstats["rel_residual"],
+                 "attempts": fstats["attempts"],
+                 "solved_by": fstats["solved_by"]}
+    obs.count("thermal/steady/solves")
+    obs.observe(f"thermal/steady/iterations[{solver}]", stats["iterations"])
+    obs.observe("thermal/steady/rel_residual", stats["rel_residual"])
     return dT + t_amb, stats
 
 
@@ -562,16 +579,26 @@ def implicit_lhs_solver(A, F, cap3, dt, theta, *, solver: str = "pcg",
     coarsest factorization, outside the time loop.
     """
     check_solver(solver)
-    c_dt = cap3 / dt
     if solver == "mg":
         from repro_torch.core import multigrid
         F_lhs = {k: theta * v for k, v in F.items()}
-        levels = multigrid.build_levels(F_lhs, c_dt)
+        levels = multigrid.build_levels(F_lhs, cap3 / dt)
         coarse = multigrid.coarse_solve_fn(levels)
         return lambda rhs: multigrid.iterate_fixed(levels, rhs, n_mg,
                                                    coarse_solve=coarse)
+    return pcg_lhs_solver(A, cap3, _diag_fields(F), dt, theta, n_cg)
+
+
+def pcg_lhs_solver(A, cap3, diagA, dt: float, theta: float, n_cg: int):
+    """The "pcg" closure of :func:`implicit_lhs_solver` for the step
+    ``dt`` (a Python float), given the operator's Jacobi diagonal
+    ``diagA``: ``n_cg`` Jacobi-PCG iterations on ``cap3/dt + theta A``.
+    The variable-step replay builds one an interval with the same
+    operations, so a step of the fixed one's length solves bit for bit
+    as the fixed-step replay does."""
+    c_dt = cap3 / dt
     lhs = lambda v: c_dt * v + theta * A(v)
-    Minv = 1.0 / (c_dt + theta * _diag_fields(F))
+    Minv = 1.0 / (c_dt + theta * diagA)
     return lambda rhs: pcg_fixed(lhs, Minv, rhs, n_cg)
 
 
@@ -642,17 +669,36 @@ def transient_solve_implicit(power, grid: Grid, t_end: float,
     """Implicit counterpart of :func:`transient_solve` with a chosen step
     count.  ``solver="mg"`` runs the multigrid inner solve on the fields
     form of the same stack; "pcg" runs Jacobi-PCG on the legacy uniform
-    operator.  Returns ``(T_end [L, ny, nx], peaks [n_steps])``."""
+    operator.  Returns ``(T_end [L, ny, nx], peaks [n_steps])``.
+
+    With ``obs`` enabled the per-step inner-solve residuals are computed
+    on the device (one extra matvec a step) and recorded under
+    ``thermal/transient/*``; the return stays the 2-tuple."""
     check_solver(solver)
+    wres = obs.is_enabled()
     power = grid.pad_power(power, device)
     dt = t_end / n_steps
     T0 = torch.full(power.shape, t_amb, dtype=torch.float32,
                     device=power.device)
-    if solver == "mg":
-        return transient_implicit_fields(
-            T0, power, grid.fields(device), grid.capacity_field(device), dt,
-            n_steps, theta, t_amb, n_cg, solver="mg", n_mg=n_mg)
-    g = grid.conductances()
-    return transient_implicit(T0, power, g["g_lat"], g["g_vert"],
-                              g["g_pkg"], grid.capacities(), dt, n_steps,
-                              theta, t_amb, n_cg)
+    with obs.span("thermal/transient", solver=solver, n_steps=n_steps):
+        if solver == "mg":
+            out = transient_implicit_fields(
+                T0, power, grid.fields(device), grid.capacity_field(device),
+                dt, n_steps, theta, t_amb, n_cg, solver="mg", n_mg=n_mg,
+                with_residuals=wres)
+        else:
+            g = grid.conductances()
+            out = transient_implicit(T0, power, g["g_lat"], g["g_vert"],
+                                     g["g_pkg"], grid.capacities(), dt,
+                                     n_steps, theta, t_amb, n_cg,
+                                     with_residuals=wres)
+    if wres:
+        T, peaks, res = out
+        obs.count("thermal/transient/solves")
+        obs.count("thermal/transient/steps", n_steps)
+        obs.count("thermal/transient/inner_iterations",
+                  n_steps * (n_mg if solver == "mg" else n_cg))
+        obs.observe_many("thermal/transient/step_rel_residual",
+                         res.cpu().numpy().astype(np.float64))
+        return T, peaks
+    return out

@@ -8,7 +8,9 @@ planes on a CUDA device it launches the hand-written kernel
 falls back.  A group the kernel cannot take (an op past its table
 budget, planes past its 32-bit offsets), which the reference runs,
 raises ``NotImplementedError``; a bad argument raises ``ValueError``.
-``run_group.launches`` counts kernel launches.
+``run_group.launches`` counts kernel launches; every call also counts
+``kernels/launch/ap_megakernel`` and ``kernels/launch/ap_megakernel/
+<backend>`` in ``repro_torch.obs``, as the reference's dispatch does.
 
 A device program that runs the same group many times uploads its tables
 once with :func:`device_group` and passes the result instead of the
@@ -33,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels.ap_megakernel import ref
 from repro_torch.kernels.ap_megakernel.ref import OpGroup
@@ -322,6 +325,8 @@ def run_group(planes: torch.Tensor, tag: torch.Tensor,
     and the lanes are not sharded (the result is the same).  A group runs
     as :func:`plan_conditional` or :func:`plan_unconditional` plans it.
     """
+    obs.count("kernels/launch/ap_megakernel")
+    obs.count(f"kernels/launch/ap_megakernel/{backend}")
     if not planes.is_cuda:
         if planes.device.type != "cpu":
             raise ValueError(f"unsupported device {planes.device}")

@@ -64,6 +64,15 @@
 //   - The CTA size is the largest of 128, 64 and 32 threads that still
 //     gives 132 CTAs, one an SM, where the grid has that many pairs; the
 //     36^2 levels of the mg replay (3,888 pairs) take 122 CTAs of 32.
+//   - Deeper columns (more than MAX_LAYERS layers: a 12-high DRAM stack on
+//     its logic die has 17) take rb_line_sweep_deep, whose layer count is
+//     a runtime argument.  It streams the column one layer at a time: it
+//     forms rhs[l] and dp[l] in the same order as the register path,
+//     writes dp[l] into the output column in place, then back-substitutes
+//     by reading dp[l] back from the output.  The thread that writes a
+//     cell is the one that reads it back, so that needs no scratch and no
+//     layer cap; the column's loads are no longer all issued before the
+//     first is used, so a layer costs a load latency on the chain.
 //
 // The sums and the guards follow the plain PyTorch version
 // (ops.rb_line_sweep_plain, after the Pallas kernel's order) and the
@@ -71,6 +80,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// the register path's deepest column; deeper ones stream
 #define MAX_LAYERS 16
 
 namespace {
@@ -166,6 +176,68 @@ __global__ void __launch_bounds__(128, 1)
   }
 }
 
+// Any layer count: the column streamed one layer at a time, dp kept in the
+// output column until the back-substitution reads it back.  The same sums
+// in the same order as rb_line_sweep<L>, so the two agree bit for bit.
+__global__ void __launch_bounds__(128, 1)
+    rb_line_sweep_deep(const float* __restrict__ T,
+                       const float* __restrict__ b,
+                       const float* __restrict__ S, float* out, int n_pairs,
+                       int L, int ny, int nx, int color) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_pairs) return;
+  const int nxh = (nx + 1) >> 1;
+  const int ip = t % nxh;
+  const int rest = t / nxh;
+  const int iy = rest % ny;
+  const int bi = rest / ny;
+  const int plane = ny * nx;
+  const int hplane = ny * nxh;
+  const int base = bi * L * plane;
+  const int n_half = n_pairs * L;
+  const int hb = bi * L * hplane + iy * nxh + ip;
+  const int x0 = 2 * ip;
+  const int xs = ((iy + x0) & 1) == color ? x0 : x0 + 1;
+  const int xc = xs == x0 ? x0 + 1 : x0;
+  const int ys = iy * nx;
+
+  if (xc < nx)
+    for (int l = 0; l < L; ++l)
+      out[base + l * plane + ys + xc] = T[base + l * plane + ys + xc];
+  if (xs >= nx) return;
+
+  const int yx = ys + xs;
+  const int o_lf = ys + (xs > 0 ? xs - 1 : xs);
+  const int o_rt = ys + (xs < nx - 1 ? xs + 1 : xs);
+  const int o_up = (iy > 0 ? ys - nx : ys) + xs;
+  const int o_dn = (iy < ny - 1 ? ys + nx : ys) + xs;
+  const float* gx_lf = S + color * 7 * n_half;
+  const float* gx_rt = gx_lf + n_half;
+  const float* gy_up = gx_lf + 2 * n_half;
+  const float* gy_dn = gx_lf + 3 * n_half;
+  const float* lo_s = gx_lf + 4 * n_half;
+  const float* den_s = gx_lf + 5 * n_half;
+  const float* cp_s = gx_lf + 6 * n_half;
+
+  float dp = 0.0f;
+  for (int l = 0; l < L; ++l) {
+    const int off = base + l * plane;
+    const int h = hb + l * hplane;
+    float r = b[off + yx] + gx_lf[h] * T[off + o_lf];
+    r = r + gx_rt[h] * T[off + o_rt];
+    r = r + gy_up[h] * T[off + o_up];
+    r = r + gy_dn[h] * T[off + o_dn];
+    dp = l == 0 ? r / den_s[h] : (r - lo_s[h] * dp) / den_s[h];
+    out[off + yx] = dp;
+  }
+  float u = dp;
+  for (int l = L - 2; l >= 0; --l) {
+    const int off = base + l * plane;
+    u = out[off + yx] - cp_s[hb + l * hplane] * u;
+    out[off + yx] = u;
+  }
+}
+
 }  // namespace
 
 // One half-sweep of colour `color` from T into out; S holds the
@@ -174,7 +246,7 @@ __global__ void __launch_bounds__(128, 1)
 extern "C" int mg_rb_line_sweep(const void* T, const void* b, const void* S,
                                 void* out, int n_batch, int n_layers, int ny,
                                 int nx, int color, void* stream) {
-  if (n_layers < 1 || n_layers > MAX_LAYERS) return (int)cudaErrorInvalidValue;
+  if (n_layers < 1) return (int)cudaErrorInvalidValue;
   const int n_pairs = n_batch * ny * ((nx + 1) / 2);
   int threads = 128;
   while (threads > 32 && (n_pairs + threads - 1) / threads < kSMs)
@@ -193,6 +265,9 @@ extern "C" int mg_rb_line_sweep(const void* T, const void* b, const void* S,
   switch (n_layers) {
     MG_L(1) MG_L(2) MG_L(3) MG_L(4) MG_L(5) MG_L(6) MG_L(7) MG_L(8)
     MG_L(9) MG_L(10) MG_L(11) MG_L(12) MG_L(13) MG_L(14) MG_L(15) MG_L(16)
+    default:
+      rb_line_sweep_deep<<<blocks, threads, 0, s>>>(t, bb, sp, o, n_pairs,
+                                                    n_layers, ny, nx, color);
   }
 #undef MG_L
   return (int)cudaGetLastError();

@@ -5,9 +5,10 @@ V-cycle level of ``core/multigrid`` runs.  For a tensor on the CPU it
 runs :func:`rb_line_sweep_plain`; for a CUDA tensor it launches the
 hand-written kernel ``csrc/mg_smooth.cu`` (which replaces the TPU kernel
 ``rb_line_sweep_kernel`` of the reference package) or raises — it never
-falls back.  A shape the kernel cannot take (more than
-:data:`MAX_LAYERS` layers, past 32-bit indices), which the reference
-runs, raises ``NotImplementedError``; a bad argument raises
+falls back.  A column of up to :data:`MAX_LAYERS` layers is solved in
+registers; a deeper one takes the kernel's streaming path, so any layer
+count runs, as in the reference.  A shape past the kernel's 32-bit
+indices raises ``NotImplementedError``; a bad argument raises
 ``ValueError``.  ``rb_line_sweep.launches`` counts kernel launches.
 
 The coefficients go to the kernel split by colour, with the parts of
@@ -25,8 +26,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.thermal_stencil.ops import (
     FIELD_KEYS, FieldPack, face_diagonal, pack_fields, shift)
 
-#: most layers a column may have on the card (the kernel keeps the
-#: Thomas coefficients of a column in registers up to this cap)
+#: deepest column the kernel solves in registers; deeper ones stream a
+#: layer at a time through the output column
 MAX_LAYERS = 16
 
 
@@ -200,9 +201,6 @@ def rb_line_sweep(T: torch.Tensor, b: torch.Tensor, F: dict, d_extra,
                          f"{T.dtype} {tuple(T.shape)} on {T.device} and "
                          f"{b.dtype} {tuple(b.shape)} on {b.device}")
     L, NY, NX = F.layers_y_x
-    if L > MAX_LAYERS:
-        raise NotImplementedError(f"{L} layers; the kernel takes at most "
-                                  f"{MAX_LAYERS}")
     T = T.contiguous()
     b = b.contiguous()
     out = torch.empty_like(T)

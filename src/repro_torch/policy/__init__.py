@@ -9,10 +9,9 @@ and performance duty.  The closed-loop replay
 interval loop, and ``SweepSpec.policies`` sweeps the registered names
 below as a scenario axis.
 
-Port note: ``"guarded"`` is registered, as in the reference, but its
-sensor-fault hardening wrapper (``faults/guard.py``) is not ported yet, so
-:func:`get` raises ``NotImplementedError`` for it (ROADMAP Queue 1, item
-2.3).
+``"guarded"`` is ``repro_torch.faults.GuardedPolicy`` around
+:class:`PerDiePolicy` (imported when asked for, as in the reference, since
+``faults`` imports this package).
 """
 from typing import Callable
 
@@ -27,9 +26,8 @@ from repro_torch.policy.pareto import dominates, pareto_front
 
 
 def _guarded_perdie() -> Policy:
-    raise NotImplementedError(
-        "policy 'guarded' wraps PerDiePolicy in faults/guard.py's "
-        "GuardedPolicy, which is not ported yet (ROADMAP Queue 1, item 2.3)")
+    from repro_torch.faults.guard import GuardedPolicy
+    return GuardedPolicy(inner=PerDiePolicy())
 
 
 #: name -> zero-argument factory for the sweepable policy family; the

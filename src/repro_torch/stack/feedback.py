@@ -38,12 +38,20 @@ Where the API differs from the reference:
   the CPU).  :func:`replay_cases`, :func:`run_stack_cosim` and
   :func:`assemble_case` take the keyword-only ``device`` (default
   ``"cuda"``).
-- Not ported yet, and rejected where asked for: ``dt_scale`` (the
-  variable-step replay; once ported it must refuse ``solver="mg"`` with
-  the reference's ``ValueError``; ROADMAP Queue 1, item 2.1), sensor
-  faults (``FeedbackParams.faults``, item 2.3) and ``n_shards`` (item
-  2.5).  ``stack_power_frames`` and ``closed_loop_sharded`` are not
-  ported either.
+- ``dt_scale`` (the variable-step replay of coarsened traces,
+  ``cosim.CoarsePlan.dt_scale``) rebuilds the PCG LHS and its Jacobi
+  preconditioner each interval from the interval's step, in double
+  precision on the host (``interval_dt * scale / steps``), so a scale of
+  1 gives the fixed replay's step and a ``dt_scale`` of ones replays it
+  bit for bit.  The reference forms that step in float32, which may
+  differ in its last bit.
+- ``FeedbackParams.faults`` (a ``repro_torch.faults.SensorFaultSpec``)
+  is read once an interval: the policy sees sensor 0 as ``layer_T`` and
+  all K readings ``[B, K, L]`` as ``sensor_T``; every case of the batch
+  gets the same seeded draws, as every case of the reference's ``vmap``
+  reads the same key chain.
+- Not ported yet, and rejected where asked for: ``n_shards`` (ROADMAP
+  Queue 1, item 2.5).  ``closed_loop_sharded`` is not ported either.
 """
 from __future__ import annotations
 
@@ -59,6 +67,7 @@ from repro_torch.core import models as M
 from repro_torch.core import thermal
 from repro_torch.core.constants import AMBIENT_C, DRAM_LIMIT_C
 from repro_torch.core.floorplan import MM, APFloorplan, SIMDFloorplan
+from repro_torch.faults.models import SensorFaultSpec
 from repro_torch.kernels.thermal_stencil import ops as stencil_ops
 from repro_torch.policy import Policy, PolicyContext, RampPolicy
 from repro_torch.stack import dram
@@ -72,8 +81,9 @@ class FeedbackParams:
 
     ``policy`` selects the DTM/DVFS controller (``repro_torch.policy``);
     None resolves to the classic linear ramp built from the ``dtm_*``
-    fields.  ``faults`` must be None: sensor faults are not ported yet
-    and raise.
+    fields.  ``faults`` injects sensor faults into the temperatures the
+    policy reads (``repro_torch.faults``); None keeps the replay exactly
+    the fault-free one.
     """
     leak_beta: float = 0.012     # 1/K exponential leakage slope (~2x / 60 K)
     t_ref_C: float = AMBIENT_C   # leakage reference temperature
@@ -84,7 +94,7 @@ class FeedbackParams:
     dtm_floor: float = 0.25      # minimum DTM duty factor
     refresh_feedback: bool = True   # False -> refresh pinned at 1x
     policy: Policy | None = None    # None -> ramp from the dtm_* fields
-    faults: None = None             # sensor faults: not ported yet
+    faults: SensorFaultSpec | None = None   # None -> perfect sensing
 
     def __post_init__(self):
         if not (0.0 < self.dtm_floor <= 1.0):
@@ -98,10 +108,6 @@ class FeedbackParams:
         if self.dtm_ramp_C < 0:
             raise ValueError("dtm_ramp_C must be >= 0 (0 = step trip); "
                              f"got {self.dtm_ramp_C!r}")
-        if self.faults is not None:
-            raise NotImplementedError(
-                "sensor faults are not ported yet (ROADMAP Queue 1, "
-                "item 2.3)")
 
     def resolved_policy(self) -> Policy:
         """The controller the replay actually runs."""
@@ -127,24 +133,47 @@ def _closed_loop(dyn_frames, leak0, refresh0, logic_mask, F, cap3,
                  interval_dt, theta, t_amb, *, fb: FeedbackParams,
                  steps_per_interval: int, n_cg: int, n_die: int,
                  margin: int, die_n: int, solver: str = "pcg",
-                 n_mg: int = 3):
+                 n_mg: int = 3, dt_scale=None):
     """The replay over a batch: dyn_frames [B, T, L, NY, NX]; leak0,
     refresh0, cap3 and every field of F [B, L, NY, NX]; logic_mask
-    [B, L].  Returns (T_end [B,L,NY,NX], peak_C [B,T,n_die],
-    min_C [B,T,n_die], residual_C [B,T], throttle [B,T], refresh_W [B,T],
-    leak_W [B,T], dyn_W [B,T])."""
+    [B, L]; ``dt_scale`` None or [T] (host values).  Returns
+    (T_end [B,L,NY,NX], peak_C [B,T,n_die], min_C [B,T,n_die],
+    residual_C [B,T], throttle [B,T], refresh_W [B,T], leak_W [B,T],
+    dyn_W [B,T])."""
     F = stencil_ops.pack_fields(F)       # checked once, one pointer a launch
     A = lambda v: stencil_ops.apply_operator_fields(v, F)
-    dt = interval_dt / steps_per_interval
-    solve = thermal.implicit_lhs_solver(A, F, cap3, dt, theta,
-                                        solver=solver, n_cg=n_cg, n_mg=n_mg)
+    if dt_scale is None:
+        solve = thermal.implicit_lhs_solver(
+            A, F, cap3, interval_dt / steps_per_interval, theta,
+            solver=solver, n_cg=n_cg, n_mg=n_mg)
+        solve_for = lambda _i: solve
+    else:
+        # variable-dt replay (coarsened traces): the theta-scheme LHS and
+        # its Jacobi preconditioner are rebuilt each interval.  The
+        # multigrid hierarchy is assembled for ONE dt, hence PCG only.
+        if solver != "pcg":
+            raise ValueError("variable-dt replay (dt_scale) requires "
+                             "solver='pcg'; the multigrid hierarchy is "
+                             "built for a fixed step")
+        diagA = thermal._diag_fields(F)
+        scales = [float(s) for s in np.asarray(
+            dt_scale.cpu() if torch.is_tensor(dt_scale) else dt_scale,
+            np.float32)]
+        if len(scales) != dyn_frames.shape[1]:
+            raise ValueError(f"dt_scale has {len(scales)} intervals, the "
+                             f"frames {dyn_frames.shape[1]}")
+        solve_for = lambda i: thermal.pcg_lhs_solver(
+            A, cap3, diagA, interval_dt * scales[i] / steps_per_interval,
+            theta, n_cg)
     lm3 = logic_mask[:, :, None, None]
     # DRAM layers are exactly the refresh-bearing ones
     dram_mask = (refresh0.sum(dim=(2, 3)) > 0).to(logic_mask.dtype)
     p_stat = leak0 + refresh0
     policy = fb.resolved_policy()
+    fspec = fb.faults
     pstate = policy.init_state(int(logic_mask.shape[1]))
-    predict = cosim.interval_forecaster(A, solve, lm3, t_amb)
+    fstate = None if fspec is None \
+        else fspec.init_state(int(logic_mask.shape[1]))
     win = (slice(None), slice(None, n_die), slice(margin, margin + die_n),
            slice(margin, margin + die_n))
 
@@ -152,11 +181,20 @@ def _closed_loop(dyn_frames, leak0, refresh0, logic_mask, F, cap3,
     ys = []
     for i in range(dyn_frames.shape[1]):
         P_dyn = dyn_frames[:, i]
+        solve = solve_for(i)
         # the policy actuates on the MEASURED (start-of-interval) hot spots
         layer_T = dTc.amax(dim=(2, 3)) + t_amb
+        sensor_T = None
+        if fspec is not None:
+            # what the controller SENSES is the faulted readings: sensor 0
+            # replaces layer_T, all K [B, K, L] go to hardened policies
+            fstate, sensor_T = fspec.read(fstate, layer_T)
+            layer_T = sensor_T[:, 0]
+        predict = cosim.interval_forecaster(A, solve, lm3, t_amb)
         ctx = PolicyContext(layer_T=layer_T, logic_mask=logic_mask,
                             dram_mask=dram_mask,
-                            predict_hot=predict(dTc, P_dyn, p_stat))
+                            predict_hot=predict(dTc, P_dyn, p_stat),
+                            sensor_T=sensor_T)
         pstate, f_power, f = policy.act(pstate, ctx)
         fp = f_power[:, None, None, None] if f_power.dim() == 1 \
             else f_power[:, :, None, None]
@@ -185,12 +223,8 @@ def _closed_loop(dyn_frames, leak0, refresh0, logic_mask, F, cap3,
             dyn_W)
 
 
-def _check_unported(solver: str, dt_scale=None, n_shards=None) -> None:
+def _check_unported(solver: str, n_shards=None) -> None:
     thermal.check_solver(solver)
-    if dt_scale is not None:
-        raise NotImplementedError(
-            "dt_scale (the variable-step replay) is not ported yet "
-            "(ROADMAP Queue 1, item 2.1)")
     if n_shards:
         raise NotImplementedError(
             "n_shards (the sharded case batch) is not ported yet "
@@ -210,16 +244,21 @@ def closed_loop_replay(dyn_frames, leak0, refresh0, logic_mask, F: dict,
     leakage or refresh baked in; leak0 / refresh0 [L, NY, NX]: leakage at
     ``fb.t_ref_C`` and 1× refresh power; logic_mask [L]: 1.0 on layers
     whose hot spot trips the DTM; F and cap3 [L, NY, NX] on the same
-    device.  Returns (T_end [L,NY,NX], peak_C [T,n_die], min_C [T,n_die],
-    residual_C [T], throttle [T], refresh_W [T], leak_W [T], dyn_W [T]).
+    device.  ``dt_scale`` [T] (optional) stretches interval i to
+    ``interval_dt * dt_scale[i]`` — the variable-step replay coarsened
+    traces use (``cosim.CoarsePlan.dt_scale``); PCG only, since the
+    multigrid hierarchy is built for one step.  The DTM controller then
+    samples at the coarsened boundaries.  Returns (T_end [L,NY,NX],
+    peak_C [T,n_die], min_C [T,n_die], residual_C [T], throttle [T],
+    refresh_W [T], leak_W [T], dyn_W [T]).
     """
-    _check_unported(solver, dt_scale)
+    _check_unported(solver)
     out = _closed_loop(dyn_frames[None], leak0[None], refresh0[None],
                        logic_mask[None], {k: v[None] for k, v in F.items()},
                        cap3[None], interval_dt, theta, t_amb, fb=fb,
                        steps_per_interval=steps_per_interval, n_cg=n_cg,
                        n_die=n_die, margin=margin, die_n=die_n,
-                       solver=solver, n_mg=n_mg)
+                       solver=solver, n_mg=n_mg, dt_scale=dt_scale)
     return tuple(o[0] for o in out)
 
 
@@ -281,6 +320,58 @@ def stack_power_inputs(spec: StackSpec, grid: thermal.Grid,
             leak0[(l,) + win] = leak_cell
         elif layer.kind == DRAM:
             dyn[(slice(None), l) + win] = act * act_map
+            leak0[(l,) + win] = dram_leak_cell
+            refresh0[(l,) + win] = ref_map
+    return dyn, leak0, refresh0, spec.layer_mask(LOGIC)
+
+
+def stack_power_frames(spec: StackSpec, grid: thermal.Grid,
+                       activity: np.ndarray, logic_pmap: np.ndarray,
+                       logic_leak_W: float, dram_fp: dram.DRAMFloorplan,
+                       traffic_bytes_per_s):
+    """:func:`stack_power_inputs` for externally-computed interval signals.
+
+    ``activity`` [T] is a raw utilization trace (NOT mean-normalized like
+    a :class:`~repro_torch.core.cosim.PowerTrace`) — logic layers draw
+    ``activity[t] *`` their dynamic map.  DRAM activate power follows
+    ``traffic_bytes_per_s``: a scalar is modulated by the same activity,
+    while an array [T] is taken as the per-interval traffic verbatim.
+    Returns the same (dyn, leak0, refresh0, logic_mask) host NumPy tuple.
+    """
+    gn = logic_pmap.shape[0]
+    L, NY, NX, m = grid.n_layers, grid.dom_ny, grid.dom_nx, grid.margin
+    act = np.asarray(activity, np.float32)
+    if act.ndim != 1:
+        raise ValueError("activity must be a 1-D interval signal")
+    Tn = act.shape[0]
+    n_dram = len(spec.dram_layers)
+    traffic = np.asarray(traffic_bytes_per_s, np.float64)
+    if traffic.ndim == 0:
+        io_W_t = act * dram.activate_io_W(float(traffic), n_dram)
+    elif traffic.shape == (Tn,):
+        io_W_t = np.array([dram.activate_io_W(float(b), n_dram)
+                           for b in traffic], np.float32)
+    else:
+        raise ValueError("traffic_bytes_per_s must be a scalar or match "
+                         "the activity length")
+
+    dyn = np.zeros((Tn, L, NY, NX), np.float32)
+    leak0 = np.zeros((L, NY, NX), np.float32)
+    refresh0 = np.zeros((L, NY, NX), np.float32)
+
+    leak_cell = logic_leak_W / gn ** 2
+    dyn_logic = (logic_pmap - leak_cell).astype(np.float32)
+    act_shape = dram_fp.activate_map(gn)
+    ref_map = dram_fp.refresh_map(gn) * dram_fp.base_refresh_W()
+    dram_leak_cell = dram_fp.leakage_W() / gn ** 2
+
+    win = (slice(m, m + gn), slice(m, m + gn))
+    for l, layer in enumerate(spec.layers[:-1]):
+        if layer.kind == LOGIC:
+            dyn[(slice(None), l) + win] = act[:, None, None] * dyn_logic
+            leak0[(l,) + win] = leak_cell
+        elif layer.kind == DRAM:
+            dyn[(slice(None), l) + win] = io_W_t[:, None, None] * act_shape
             leak0[(l,) + win] = dram_leak_cell
             refresh0[(l,) + win] = ref_map
     return dyn, leak0, refresh0, spec.layer_mask(LOGIC)

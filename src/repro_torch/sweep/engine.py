@@ -18,7 +18,7 @@ with ``spec.ap_backend`` as the capture mode.  A group whose replay
 raises ``ValueError`` or ``FloatingPointError`` is demoted to FAILED
 records, as in the reference; any other error propagates, so a FAILED
 row never hides the card: a CUDA or kernel error is a ``RuntimeError``,
-and a shape a kernel cannot take on the card (the smoother's 16 layers)
+and a shape a kernel cannot take on the card (past its 32-bit indices)
 is a ``NotImplementedError``.
 ``n_shards`` is not ported yet and raises (ROADMAP Queue 1, item 2.5).
 """

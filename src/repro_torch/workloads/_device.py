@@ -29,8 +29,14 @@ the host accounting in one vectorized :meth:`APEngine.charge_bulk` fold.
 Port note: the reference compiles these loops with ``jax.jit`` and
 ``lax.scan``; here each is a Python loop of device ops (and, in
 megakernel mode, one kernel launch a round) that reads nothing back until
-the loop ends.  The lane-sharded runner and the ``obs`` counters are not
-ported.
+the loop ends.  The lane-sharded runner is not ported.  ``obs`` counts
+what the reference counts: ``kernels/launch/ap_megakernel/
+min_extract_rounds`` once a megakernel-mode extraction, and
+``kernels/launch/ap_megakernel`` once a host-level launch — here each
+round's ``run_group`` call, where the reference's rounds are one compiled
+program and count once.  The reference's ``workloads/retrace/*``
+counters count JAX traces of these programs; the port traces and caches
+nothing here, so it has no such counter.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import bitplane as bp
 from repro_torch.core import engine as E
 from repro_torch.core import isa
@@ -369,6 +376,7 @@ def min_extract_rounds_mk(eng: APEngine, val: Field, active: Field,
     :class:`MinExtractTrace` so the replay layer is shared."""
     copy_sched = isa.copy(cand, active)
     group = _min_extract_group(copy_sched, val, active, cand, readout)
+    obs.count("kernels/launch/ap_megakernel/min_extract_rounds")
     dg = mk_ops.device_group(group, eng.device)
     state, ys = _mk_rounds(eng.state(), dg, remaining, rounds, readout)
     matched, tie_tag, masked, ctr = _to_host(*ys, state.counters)

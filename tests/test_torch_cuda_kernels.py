@@ -169,23 +169,46 @@ def test_smoother_kernel_rejects_what_it_does_not_take(cuda):
         mg_ops.rb_line_sweep(T, b[:, :4], F, d, 0)
     with pytest.raises(ValueError):
         mg_ops.rb_line_sweep(T, b, F, d.cpu(), 0)
-    big = torch.zeros((mg_ops.MAX_LAYERS + 1, 4, 4), device=cuda)
-    Fb = {k: torch.zeros_like(big) for k in st_ops.FIELD_KEYS}
-    with pytest.raises(NotImplementedError, match="layers"):
-        mg_ops.rb_line_sweep(big, big, Fb, 0.0, 1)
+    # a column past the register path's depth is taken, not refused
+    deep = torch.zeros((mg_ops.MAX_LAYERS + 1, 4, 4), device=cuda)
+    Fb = {k: torch.zeros_like(deep) for k in st_ops.FIELD_KEYS}
+    torch.testing.assert_close(mg_ops.rb_line_sweep(deep, deep, Fb, 0.0, 1),
+                               deep, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(17, 36, 36), (6, 21, 36, 36),
+                                   (32, 9, 7), (2, 17, 5, 33),
+                                   (21, 384, 384)])
+def test_smoother_deep_columns_equal_plain(cuda, shape):
+    """Past MAX_LAYERS the kernel streams the column through its output:
+    L of 17, 21 and 32, batched, odd widths, from a checked level and
+    from a dict: bit for bit, both colours."""
+    T, b, F, d = _smooth_case(shape, sum(shape) + 7, cuda)
+    pack, dl = mg_ops.checked_level(F, d)
+    for color in (0, 1):
+        want = mg_ops.rb_line_sweep_plain(T, b, F, d, color)
+        before = mg_ops.rb_line_sweep.launches
+        got = mg_ops.rb_line_sweep(T, b, pack, dl, color)
+        loose = mg_ops.rb_line_sweep(T, b, F, d, color)
+        assert mg_ops.rb_line_sweep.launches == before + 2
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(loose, want, rtol=0, atol=0)
 
 
 def test_sweep_past_the_smoother_layer_cap_raises(cuda, tmp_path):
-    """A 12-die stack (17 layers) with the mg inner solve is past the
-    smoother kernel's 16 layers: the sweep raises instead of demoting the
-    group to FAILED rows, and caches nothing."""
-    from repro_torch.sweep import SweepSpec, cache, run_sweep
+    """A 12-die stack (17 layers) with the mg inner solve, once past the
+    smoother kernel's register path, now runs on the card: every record
+    finite with a verdict, none FAILED, and the smoother launched."""
+    from repro_torch.sweep import SweepSpec, run_sweep
     spec = SweepSpec(workloads=("hist",), sizes=(4096,), n_dram=(12,),
                      grid_n=8, n_intervals=2, steps_per_interval=1,
                      n_cg=5, solver="mg")
-    with pytest.raises(NotImplementedError, match="17 layers"):
-        run_sweep(spec, cache_dir=tmp_path, device="cuda")
-    assert not cache.path_for(spec, tmp_path, device="cuda").exists()
+    before = mg_ops.rb_line_sweep.launches
+    res = run_sweep(spec, cache_dir=tmp_path, device="cuda")
+    assert mg_ops.rb_line_sweep.launches > before
+    assert res.n_failed == 0
+    for r in res.records:
+        assert np.isfinite(r.report.peak_C).all()
 
 
 @pytest.mark.parametrize("shape", [(5, 384, 384), (5, 64, 64), (7, 40, 24),

@@ -217,11 +217,13 @@ def test_ramp_policy_matches_reference():
 
 def test_unported_options_raise():
     # every controller of the policy family is ported (the base class is
-    # the explicit "no DTM" policy); sensor faults are not
+    # the explicit "no DTM" policy), and so are sensor faults and dt_scale;
+    # only n_shards is not
+    from repro_torch.faults import SensorFaultSpec
     assert tfb.FeedbackParams(policy=tpolicy.Policy()).resolved_policy() \
         == tpolicy.Policy()
-    with pytest.raises(NotImplementedError, match="item 2.3"):
-        tfb.FeedbackParams(faults=object())
+    assert tfb.FeedbackParams(faults=SensorFaultSpec(n_stuck=1)).faults \
+        == SensorFaultSpec(n_stuck=1)
     with pytest.raises(ValueError):
         tfb.FeedbackParams(dtm_floor=0.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -229,7 +231,11 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unknown solver"):
         tfb.run_stack_cosim(device="cpu", solver="mgcg")
     x = torch.zeros((1, 2, 2, 2))
-    with pytest.raises(NotImplementedError, match="dt_scale"):
+    with pytest.raises(ValueError, match="solver='pcg'"):
         tfb.closed_loop_replay(x, x[0], x[0], torch.zeros(2),
-                               {}, x[0], 0.1, fb=tfb.FeedbackParams(),
-                               die_n=2, n_die=1, dt_scale=np.ones(1))
+                               {k: x[0] for k in ("gx_lf", "gx_rt", "gy_up",
+                                                  "gy_dn", "gz_up", "gz_dn",
+                                                  "g_pkg")},
+                               x[0], 0.1, fb=tfb.FeedbackParams(),
+                               die_n=2, n_die=1, solver="mg",
+                               dt_scale=np.ones(1))

@@ -33,8 +33,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     # every module of the port was imported, the configs, models and
-    # flash-attention modules, obs, the policy family and the sweep included
-    assert n_modules >= 78
+    # flash-attention modules, obs, the policy family, the sweep and the
+    # sensor-fault models and guard included
+    assert n_modules >= 80
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

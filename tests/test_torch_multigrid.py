@@ -324,3 +324,50 @@ def test_coarse_factorization_raises_when_not_positive_definite():
     d = torch.full(Fn["g_pkg"].shape, -10.0)
     with pytest.raises(RuntimeError, match="positive definite"):
         tmg.coarse_factorization(tmg.build_levels(Ft, d))
+
+
+@pytest.mark.parametrize("n_dram", [12, 16])
+@pytest.mark.parametrize("color", [0, 1])
+def test_deep_column_sweep_matches_reference(n_dram, color):
+    """12 and 16 DRAM dies on a logic die: 17 and 21 layers a column, past
+    the card kernel's register path.  The plain half-sweep against the
+    reference's oracle and its Pallas kernel in interpret mode."""
+    Fj, Fn, Ft = _fields(n=16, margin=4, n_dram=n_dram)
+    shape = Fn["g_pkg"].shape
+    assert shape[0] == n_dram + 5 > tsmooth.MAX_LAYERS
+    T, b = _vec(shape, 20 + n_dram), _vec(shape, 21 + n_dram)
+    d = np.full(shape, 0.25, np.float32)
+    got = tmg.rb_line_sweep(torch.from_numpy(T), torch.from_numpy(b), Ft,
+                            torch.from_numpy(d), color)
+    oracle = jmg.rb_line_sweep(jnp.asarray(T), jnp.asarray(b), Fj,
+                               jnp.asarray(d), color)
+    pallas = jsmooth.rb_line_sweep(jnp.asarray(T), jnp.asarray(b), Fj,
+                                   jnp.asarray(d), color, block_y=8)
+    _close(got, oracle, rtol=1e-5, atol_rel=1e-5)
+    _close(got, pallas, rtol=1e-5, atol_rel=1e-5)
+    # the plain version is the coefficient-split recursion the kernel runs
+    pack, dl = tsmooth.checked_level(Ft, torch.from_numpy(d))
+    coef = pack.smoother_coefficients
+    assert coef.shape == (2, 7, shape[0], shape[1], (shape[2] + 1) // 2)
+
+
+def test_deep_stack_steady_mg_matches_reference():
+    """Steady mg and mgcg on a 12-high DRAM stack (17 layers) at 16^2:
+    maxima within the phase-9 bar (0.05 °C) of the reference's, and the
+    port's mg within 1e-3 °C of its mgcg."""
+    from repro.core import thermal as jth
+    from repro_torch.core import thermal as tth
+    from repro_torch.stack.spec import dram_on_logic as t_dram_on_logic
+    n = 16
+    out = {}
+    for pkg, spec, kw in ((jth, j_dram_on_logic(12), {}),
+                          (tth, t_dram_on_logic(12), {"device": "cpu"})):
+        grid = pkg.Grid(die_w=5e-3, ny=n, nx=n, margin=n // 4, spec=spec)
+        power = np.zeros((grid.n_die_layers, n, n), np.float32)
+        power[list(spec.logic_layers)] = 40.0 / (len(spec.logic_layers)
+                                                 * n * n)
+        out[pkg] = {s: np.asarray(pkg.steady_state_stats(
+            power, grid, solver=s, **kw)[0]) for s in ("mg", "mgcg")}
+    for s in ("mg", "mgcg"):
+        assert abs(out[tth][s].max() - out[jth][s].max()) <= 0.05
+    assert np.abs(out[tth]["mg"] - out[tth]["mgcg"]).max() <= 1e-3

@@ -233,3 +233,100 @@ def test_replay_telemetry_matches_reference():
     assert residency == {f"policy/dvfs-22nm/residency/{k}": v
                          for k, v in want.items()}
     assert snap["histograms"]["policy/dvfs-22nm/duty"]["count"] == 24
+
+
+# ------------------------------------------------- the solvers' counters
+
+def _solver_counters(m):
+    return {k: v for k, v in m.snapshot()["counters"].items()
+            if k.startswith(("thermal/", "mg/", "kernels/"))
+            and "/retrace/" not in k}
+
+
+def test_steady_solve_counters_match_reference():
+    """``thermal/steady`` (span, solves, iterations and residual
+    observations) and ``mg/hierarchies_built``: the same names and counts
+    as the reference's for the same steady solves.  The reference counts
+    a hierarchy once a trace of its jitted driver, the port once a
+    build; a steady mg solve builds one in both."""
+    from repro.core import thermal as jth
+    from repro_torch.core import thermal as tth
+    n = 16
+    for pkg, kw, m in ((jth, {}, jobs), (tth, {"device": "cpu"}, obs)):
+        grid = pkg.Grid(die_w=3e-3, ny=n, nx=n, margin=4)
+        p = np.zeros((grid.n_die_layers, n, n), np.float32)
+        p[0, 4:12, 4:12] = 0.05
+        with m.scoped():
+            for s in ("pcg", "mg"):
+                pkg.steady_state_stats(p, grid, solver=s, **kw)
+    got, want = _solver_counters(obs), _solver_counters(jobs)
+    assert got == want
+    assert got["thermal/steady/solves"] == 2
+    assert got["mg/hierarchies_built"] >= 1
+    for name in ("span/thermal/steady", "thermal/steady/iterations[pcg]",
+                 "thermal/steady/iterations[mg]",
+                 "thermal/steady/rel_residual"):
+        assert obs.snapshot()["histograms"][name]["count"] \
+            == jobs.snapshot()["histograms"][name]["count"], name
+
+
+@pytest.mark.parametrize("solver", ["pcg", "mg"])
+def test_transient_counters_and_residuals_match_reference(solver):
+    """``thermal/transient``: solves, steps and inner iterations equal,
+    and one residual observation a step, each small, as the reference's
+    ``with_residuals`` path records them; with obs off the return is the
+    same 2-tuple bit for bit."""
+    from repro.core import thermal as jth
+    from repro_torch.core import thermal as tth
+    n, steps = 8, 5
+    out = {}
+    for pkg, kw, m in ((jth, {}, jobs), (tth, {"device": "cpu"}, obs)):
+        grid = pkg.Grid(die_w=3e-3, ny=n, nx=n)
+        p = np.full((grid.n_die_layers, n, n), 1e-3, np.float32)
+        with m.scoped():
+            out[m] = pkg.transient_solve_implicit(p, grid, 0.02, steps,
+                                                  solver=solver, n_cg=20,
+                                                  **kw)
+    got = obs.snapshot()
+    want = jobs.snapshot()
+    for name in ("thermal/transient/solves", "thermal/transient/steps",
+                 "thermal/transient/inner_iterations"):
+        assert got["counters"][name] == want["counters"][name], name
+    h, jh = (s["histograms"]["thermal/transient/step_rel_residual"]
+             for s in (got, want))
+    assert h["count"] == jh["count"] == steps
+    assert h["max"] <= max(10 * jh["max"], 1e-5)
+    from repro_torch.core import thermal as tth
+    grid = tth.Grid(die_w=3e-3, ny=n, nx=n)
+    p = np.full((grid.n_die_layers, n, n), 1e-3, np.float32)
+    off = tth.transient_solve_implicit(p, grid, 0.02, steps, solver=solver,
+                                       n_cg=20, device="cpu")
+    assert len(off) == 2
+    for x, y in zip(off, out[obs]):
+        assert (x == y).all()
+
+
+@pytest.mark.parametrize("w", ["hist", "spmv", "sort"])
+def test_megakernel_launch_counters_match_reference(w):
+    """``kernels/launch/ap_megakernel*`` of a megakernel-mode capture.
+    hist and spmv (probe batches) count as the reference does; sort's
+    min-extraction counts ``/min_extract_rounds`` as the reference does,
+    and ``kernels/launch/ap_megakernel`` once a launch of a round, where
+    the reference's rounds are one compiled program (the module note of
+    ``repro_torch.workloads._device``)."""
+    from repro.workloads import registry as jreg
+    from repro_torch.workloads import registry as treg
+    with jobs.scoped():
+        jreg.trace_counters(w, 64, mode="megakernel")
+    with obs.scoped():
+        treg.trace_counters(w, 64, mode="megakernel", device="cpu")
+    got = obs.values_by_prefix("kernels/launch/")
+    want = jobs.values_by_prefix("kernels/launch/")
+    if w == "sort":
+        key = "kernels/launch/ap_megakernel/min_extract_rounds"
+        assert got[key] == want[key] >= 1
+        assert got["kernels/launch/ap_megakernel"] \
+            >= want["kernels/launch/ap_megakernel"]
+    else:
+        assert got == want
+        assert got["kernels/launch/ap_megakernel"] >= 1

@@ -258,15 +258,35 @@ def test_replay_matches_reference(dmm_cases, name):
 
 @pytest.mark.parametrize("fb_kw", [
     {}, dict(leak_beta=0.0, n_picard=2, dtm_trip_C=math.inf,
-             refresh_feedback=False),
-    pytest.param({}, marks=pytest.mark.skip(
-        reason="dt_scale (the variable-step replay) is not ported yet: "
-               "ROADMAP Queue 1, item 2.1"))],
+             refresh_feedback=False), dict(dt_scale=True)],
     ids=["tripping", "disabled", "dt_scale"])
 def test_default_ramp_replay_matches_reference(dmm_cases, fb_kw):
     """The default controller (policy=None, the historical ramp the
-    reference pins bit-identical to its legacy loop) and the disabled
-    loop, against the reference's replay."""
+    reference pins bit-identical to its legacy loop), the disabled loop
+    and the variable-step path (a dt_scale of ones, each case on its
+    own: bit for bit the port's fixed-step replay), against the
+    reference's replay."""
+    if fb_kw.pop("dt_scale", False):
+        jcases, tcases = dmm_cases
+        for (label, jl), (_, tl) in zip(jcases, tcases):
+            kw = dict(die_n=GRID_N, n_die=3, steps_per_interval=1,
+                      n_cg=120, margin=MARGIN)
+            ref = jfb.closed_loop_replay(
+                *(jnp.asarray(x) for x in jl[:4]), jl[4], jl[5], DT,
+                fb=jfb.FeedbackParams(), dt_scale=jnp.ones(N_INT), **kw)
+            fixed, scaled = (tfb.closed_loop_replay(
+                *(torch.as_tensor(np.asarray(x, np.float32))
+                  for x in tl[:4]), tl[4], tl[5], DT,
+                fb=tfb.FeedbackParams(), dt_scale=s, **kw)
+                for s in (None, np.ones(N_INT, np.float32)))
+            for x, y in zip(fixed, scaled):
+                assert torch.equal(x, y), label
+            np.testing.assert_allclose(scaled[1].numpy(),
+                                       np.asarray(ref[1]), rtol=0,
+                                       atol=CONVERGED_ATOL_C)
+            np.testing.assert_array_equal(scaled[4].numpy(),
+                                          np.asarray(ref[4]))
+        return
     ref, got = _replays(dmm_cases, None, n_cg=120, **fb_kw)
     for label in ref:
         np.testing.assert_allclose(got[label].peak_C, ref[label].peak_C,
@@ -284,8 +304,9 @@ def test_default_ramp_replay_matches_reference(dmm_cases, fb_kw):
 def test_registry_names_and_guarded():
     assert P.names() == JP.names()
     assert "guarded" in P.names()
-    with pytest.raises(NotImplementedError, match="item 2.3"):
-        P.get("guarded")
+    guarded = P.get("guarded")
+    assert type(guarded).__name__ == type(JP.get("guarded")).__name__
+    assert guarded.name == JP.get("guarded").name == "guarded-perdie"
     with pytest.raises(ValueError, match="unknown policy"):
         P.get("nope")
     for name in CONTROLLERS:
@@ -308,10 +329,8 @@ def test_policy_constructors_validate():
     with pytest.raises(ValueError, match="ramp widths"):
         P.PerDiePolicy(dram_ramp_C=-1.0)
     # every controller is accepted by the replay's parameters now
-    for name in CONTROLLERS:
+    for name in P.names():
         tfb.FeedbackParams(policy=P.get(name))
-    with pytest.raises(NotImplementedError, match="item 2.3"):
-        tfb.FeedbackParams(faults=object())
 
 
 def _ctx1(t):

@@ -378,3 +378,131 @@ def test_run_stack_cosim_use_pallas_in_its_position():
         r, g = ref["dmm"][machine], got["dmm"][machine]
         np.testing.assert_allclose(g.peak_C, np.asarray(r.peak_C),
                                    atol=0.1)
+
+
+# ---------------------------------------------------------------------------
+# the open-loop co-simulation, coarsening and sensor faults
+# ---------------------------------------------------------------------------
+
+def _params(fn):
+    """Positional-or-keyword parameter names of ``fn``, in order, and its
+    keyword-only ones."""
+    import inspect
+    ps = inspect.signature(fn).parameters.values()
+    return ([p.name for p in ps if p.kind != p.KEYWORD_ONLY],
+            sorted(p.name for p in ps if p.kind == p.KEYWORD_ONLY))
+
+
+def test_new_entry_points_have_the_references_signatures():
+    """Every entry point of this slice takes the reference's parameters in
+    the reference's positions; ``device`` is the port's own, keyword-only
+    addition where the entry point creates tensors."""
+    from repro.core import cosim as jc
+    from repro.faults import guard as jg
+    from repro.faults import models as jm
+    from repro_torch.core import cosim as tc
+    from repro_torch.faults import guard as tg
+    from repro_torch.faults import models as tm
+    pairs = [(jc.power_frames, tc.power_frames, []),
+             (jc.coarsen_plan, tc.coarsen_plan, []),
+             (jc.dc_peak_rise_C, tc.dc_peak_rise_C, []),
+             (jc.cosim_transient, tc.cosim_transient, []),
+             (jc.cosim_transient_batch, tc.cosim_transient_batch, []),
+             (jc.run_cosim, tc.run_cosim, ["device"]),
+             (jfb.stack_power_frames, tfb.stack_power_frames, []),
+             (jfb.closed_loop_replay, tfb.closed_loop_replay, []),
+             (jm.inject_power_spikes, tm.inject_power_spikes, [])]
+    for ref, port, extra in pairs:
+        rp, rk = _params(ref)
+        pp, pk = _params(port)
+        assert pp == rp, port.__name__
+        assert pk == sorted(rk + extra), port.__name__
+    for ref, port in ((jc.CoarsePlan, tc.CoarsePlan),
+                      (jc.CosimReport, tc.CosimReport),
+                      (jm.SensorFaultSpec, tm.SensorFaultSpec),
+                      (jm.PowerFaultSpec, tm.PowerFaultSpec),
+                      (jg.GuardedPolicy, tg.GuardedPolicy),
+                      (jfb.FeedbackParams, tfb.FeedbackParams)):
+        import dataclasses
+        assert [f.name for f in dataclasses.fields(port)] \
+            == [f.name for f in dataclasses.fields(ref)], port.__name__
+    for name in ("merge", "expand", "pad_to", "dt_scale"):
+        assert _params(getattr(tc.CoarsePlan, name)) \
+            == _params(getattr(jc.CoarsePlan, name)), name
+    assert _params(tm.SensorFaultSpec.read) == _params(jm.SensorFaultSpec.read)
+
+
+def test_run_cosim_reference_positional_arguments():
+    """``run_cosim`` with every reference argument in its position, up to
+    ``stack`` and ``use_pallas``: the reference's answer within 2e-3 °C
+    (60 CG iterations; the SIMD case runs at 160 °C, where 20 leave the
+    two packages' float32 sums 0.04 °C apart)."""
+    from repro.core import cosim as jc
+    from repro_torch.core import cosim as tc
+    from repro_torch.stack.spec import PAPER_STACK
+    args = (("dmm",), 8, 6, 0.1, 1, 60, 1.0)
+    ref = jc.run_cosim(*args, jfb.PAPER_STACK, False)
+    got = tc.run_cosim(*args, PAPER_STACK, True, device="cpu")
+    for machine in ("ap", "simd"):
+        np.testing.assert_allclose(got["dmm"][machine].peak_C,
+                                   ref["dmm"][machine].peak_C, atol=2e-3)
+
+
+def test_cosim_transient_and_coarsening_reference_positional_arguments():
+    """``cosim_transient`` with ``theta`` and ``t_amb`` positional,
+    ``coarsen_plan(activity, tol, max_merge)``, ``CoarsePlan(reps)`` and
+    ``dc_peak_rise_C(frame, F)`` as the reference takes them."""
+    from repro.core import cosim as jc
+    from repro_torch.core import cosim as tc
+    rng = np.random.default_rng(6)
+    jgrid = jthermal.Grid(die_w=3e-3, ny=8, nx=8, margin=2)
+    tgrid = tthermal.Grid(die_w=3e-3, ny=8, nx=8, margin=2)
+    pmap = rng.uniform(0, 5e-3, size=(8, 8))
+    act = rng.uniform(0.5, 1.5, 5)
+    frames = tc.power_frames(tc.PowerTrace(act / act.mean()), pmap, 0.0,
+                             tgrid)
+    kw = dict(die_n=8, steps_per_interval=2, n_cg=40, n_si=4, margin=2)
+    ref = jc.cosim_transient(jnp.asarray(frames), jgrid.fields(),
+                             jgrid.capacity_field(), 0.02, 0.5, 30.0, **kw)
+    got = tc.cosim_transient(torch.from_numpy(frames), tgrid.fields("cpu"),
+                             tgrid.capacity_field("cpu"), 0.02, 0.5, 30.0,
+                             **kw)
+    for r, g in zip(ref, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-3)
+    plan = tc.coarsen_plan(act, 0.3, 2)
+    np.testing.assert_array_equal(plan.reps,
+                                  jc.coarsen_plan(act, 0.3, 2).reps)
+    assert tc.CoarsePlan(plan.reps).n_base == 5
+    np.testing.assert_allclose(
+        tc.dc_peak_rise_C(frames[0], tgrid.fields("cpu")),
+        jc.dc_peak_rise_C(frames[0], jgrid.fields()), rtol=1e-4)
+
+
+def test_fault_specs_and_guard_reference_positional_arguments():
+    """``SensorFaultSpec``, ``PowerFaultSpec`` and ``GuardedPolicy`` built
+    positionally as the reference's; ``FeedbackParams(faults=)`` and
+    ``policy.get("guarded")`` take them."""
+    from repro.faults import models as jm
+    from repro.faults import guard as jg
+    from repro.policy import PerDiePolicy as JPerDie
+    from repro_torch.faults import models as tm
+    from repro_torch.faults import guard as tg
+    from repro_torch.policy import PerDiePolicy, get
+    args = (3, 4, 0.5, 0.25, 0.1, 0.5, 1, 0.2)
+    assert dataclasses_astuple(tm.SensorFaultSpec(*args)) \
+        == dataclasses_astuple(jm.SensorFaultSpec(*args))
+    assert dataclasses_astuple(tm.PowerFaultSpec(1, 2, 3.0, 2)) \
+        == dataclasses_astuple(jm.PowerFaultSpec(1, 2, 3.0, 2))
+    g = tg.GuardedPolicy(PerDiePolicy(), -10.0, 140.0, 50.0, 2, 0.3)
+    jgp = jg.GuardedPolicy(JPerDie(), -10.0, 140.0, 50.0, 2, 0.3)
+    assert (g.lo_C, g.hi_C, g.max_step_C, g.hold_max, g.floor, g.name) \
+        == (jgp.lo_C, jgp.hi_C, jgp.max_step_C, jgp.hold_max, jgp.floor,
+            jgp.name)
+    fb = tfb.FeedbackParams(policy=get("guarded"),
+                            faults=tm.SensorFaultSpec(*args))
+    assert fb.resolved_policy().name == "guarded-perdie"
+
+
+def dataclasses_astuple(x):
+    import dataclasses
+    return dataclasses.astuple(x)
