@@ -162,14 +162,38 @@ these phases, each printing one line with its result and seconds:
     with the reference's ``thermal/fallback/*`` counts; the power spike;
 25. deep stacks: the smoother's streaming path (17, 21 and 32 layers) bit
     for bit at the mg replay's 36^2 level and the 384^2 steady grid, timed
-    beside its bound; steady mg and mgcg on ``dram_on_logic(12)`` and
+    beside its bound, and its device time a launch at the 36^2 level by
+    ``torch.profiler``; steady mg and mgcg on ``dram_on_logic(12)`` and
     ``(16)`` at 256^2 within ``STEADY_TOL_C`` of JAX's maxima; the quick
-    sweep with ``solver="mg"`` on 12 DRAM dies, every verdict JAX's.
-Phases 22-25 read their parameters and the JAX reference's values from
-``tools/chip_reference.json`` (``tools/chip_reference.py``), and rerun
+    sweep with ``solver="mg"`` on 12 DRAM dies, every verdict JAX's;
+26. the sharded case batch (``n_shards``): ``run_sweep`` of phase 20's
+    full spec with ``n_shards=1``, every record bit for bit phase 20's
+    unsharded records, then with 3 shards (16-case groups padded to 18)
+    and 4; ``run_stack_cosim`` of phase 5 with ``n_shards=1``, pcg and
+    mg, bit for bit phases 5's and 11's reports; ``tests/test_faults.py``'s
+    faulted sort replay (2 DRAM dies, ``PerDiePolicy``, the seeded
+    ``SensorFaultSpec``) at grid 8 on 1, 3 and 4 shards and at grid 24 on
+    1 and 4, bit for bit the unsharded replay and within ``PEAK_TOL_C``
+    of JAX's (NaN where JAX's is); ``sweep_mesh(2)`` on this one-card
+    host raises.  Several shards are several slices on the one card
+    (``sharding.local_devices`` lists it n times): the mechanism, not
+    multi-card scaling;
+27. AP lane sharding and FP32 on the AP: phase 15's ``ap_sort`` of 2^20
+    bytes in megakernel mode with ``n_shards`` 1, 2 and 4, and phase 14's
+    suite traces with 2 and 4 shards, values, counters and trace arrays
+    bit for bit the unsharded runs', the megakernel launched and no plain
+    version called; every segment of a sharded sort round at each shard
+    width (32768, 16384, 8192 lanes) bit for bit against the plain
+    version; ``apfloat.fp_mul`` and ``fp_add`` at N = 64 and 1024
+    (``bench_cycles.py``'s inputs) bit for bit JAX's results, counters,
+    energy and trace arrays, and at N = 2^20 within 2 and 4 ulp of NumPy
+    float32 with exact zeros, ``fp_mul``'s cycles those at N = 1024 (the
+    paper's length independence), with seconds a call.
+Phases 22-27 read their parameters and the JAX reference's values from
+``tools/chip_reference.json`` (``tools/chip_reference.py``); 22-25 rerun
 every kernel they launched on the inputs they gave it, as in 20.
 
-Phases 5, 9-12, 14-16 and 18-25 each set every kernel's launch counter
+Phases 5, 9-12, 14-16 and 18-27 each set every kernel's launch counter
 to 0 just before they drive their path and read the counters just after;
 a kernel of the path that was not launched fails the phase.  The model's
 entry points (``forward``, ``prefill``, ``decode_step``) and phase 17's
@@ -728,6 +752,7 @@ def _stack_path(results, key: str, solver: str, expected: dict,
         f"{t1 - t0:.2f} s, replay {t2 - t1:.2f} s; launches {launches}")
     results[key] = dict(capture_s=t1 - t0, replay_s=t2 - t1,
                         launches=launches, cases=cases)
+    KEPT[key] = out
     return launches
 
 
@@ -1454,6 +1479,7 @@ def suite_capture(results):
                 for m, d in runs)
             + f"; megakernel launches {mk_row['ap_megakernel']} "
             f"({unconditional[w]} of unconditional groups)")
+        KEPT[f"suite/{w}"] = first
     results["suite_capture"] = dict(runs=rows,
                                     megakernel_launches=mk_launches,
                                     unconditional_launches=unconditional)
@@ -1489,6 +1515,7 @@ def paper_sort(results):
     say(f"  sort n=2048 (second of two calls): device "
         f"{times['device'][1]:.3f} s, megakernel "
         f"{times['megakernel'][1]:.3f} s")
+    KEPT["paper_sort"] = (y, ctr)
     results["paper_sort"] = dict(seconds=sec, launches=launches,
                                  cycles=ctr["cycles"], energy=ctr["energy"],
                                  sort_2048_s=times)
@@ -2622,11 +2649,23 @@ def _converged_twin(key: str, spec, rec: SweepRecorder
     return dict(seconds=seconds, records=rows), faults
 
 
-def _same_records(a, b) -> bool:
+def _bits(a):
     import numpy as np
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.uint32)
+
+
+def _same_reports(a, b) -> bool:
+    """Two StackReports bit for bit, NaNs included."""
+    import numpy as np
+    return all(np.array_equal(_bits(getattr(a, n)), _bits(getattr(b, n)))
+               for n in SWEEP_ARRAYS)
+
+
+def _same_records(a, b) -> bool:
+    """Two sweep results' records bit for bit."""
     return [r.label for r in a.records] == [r.label for r in b.records] \
-        and all(np.array_equal(getattr(x.report, n), getattr(y.report, n))
-                for x, y in zip(a.records, b.records) for n in SWEEP_ARRAYS)
+        and all(_same_reports(x.report, y.report)
+                for x, y in zip(a.records, b.records))
 
 
 @phase("20 scenario sweep")
@@ -2650,6 +2689,7 @@ def sweep_path(results):
         twin, f_twin = _converged_twin(key, res.spec, rec)
         faults += f + f_twin
         runs[key] = res
+        KEPT[key] = res
         out[key] = dict(seconds=sec, launches=launches, groups=groups,
                         records=rows, converged_twin=twin)
 
@@ -2755,6 +2795,10 @@ def policy_sweep(results):
 #: parameters of each phase, which the phases read from it
 CHIP_REFERENCE = ROOT / "tools" / "chip_reference.json"
 _CHIP_REF: dict = {}
+#: results of earlier phases that phases 26-27 hold the sharded runs to
+#: (reports and records, not printed): "main_path" and "mg_path" (phases
+#: 5 and 11), "suite/<w>" (14), "paper_sort" (15), "sweep_full" (20)
+KEPT: dict = {}
 
 
 def _chip_reference() -> dict:
@@ -3188,9 +3232,17 @@ def deep_stacks(results):
         smooth[label] = dict(shape=list(T.shape), max_abs_err=0.0, ms=ms,
                              plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                              library_ms=None)
+        dev = ""
+        if label.endswith("_36"):
+            # the streaming path's device time a launch (no launch path)
+            us = _profiled_us(lambda: ops.rb_line_sweep(T, b, F, d, 0), 50,
+                              "rb_line_sweep_deep")
+            smooth[label]["device_ms"] = None if us is None else us / 1e3
+            dev = ("device time not recorded" if us is None else
+                   f"device {us:.2f} us a launch (profiler)") + ", "
         say(f"  deep rb_line_sweep {tuple(T.shape)}: exact, both colours; "
-            f"kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, bound "
-            f"{b_ms * 1e3:.2f} us ({b_by})")
+            f"kernel {ms * 1e3:.2f} us a call, {dev}plain "
+            f"{plain * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by})")
     rec = SweepRecorder()
     steady, launches_by = {}, {}
     say("  stack     solver  iterations  seconds   max C      reference")
@@ -3268,6 +3320,406 @@ def deep_stacks(results):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phases 26-27: n_shards and the AP's FP32
+# ---------------------------------------------------------------------------
+
+class _OneCardShards:
+    """``sharding.local_devices`` listing the one card four times while
+    it is entered, so n shards run as n slices on one card."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.parallel import sharding
+        self._real = sharding.local_devices
+        sharding.local_devices = lambda device="cuda": (
+            torch.device("cuda", 0),) * 4
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.parallel import sharding
+        sharding.local_devices = self._real
+
+
+def _fault_replay(c: dict, faults: dict, n_shards):
+    """``tests/test_faults.py``'s faulted sort replay at ``c``'s size."""
+    from repro_torch.core import cosim
+    from repro_torch.faults import SensorFaultSpec
+    from repro_torch.policy import PerDiePolicy
+    from repro_torch.stack import feedback
+    from repro_torch.stack.spec import PAPER_STACK, dram_on_logic
+    spec = dram_on_logic(2, PAPER_STACK)
+    dp = cosim.comparable_design_point("sort", 2 ** 20)
+    trace = cosim.ap_workload_trace("sort", c["n_intervals"],
+                                    cosim.trace_elems(2 ** 20),
+                                    device="cuda")
+    case = [("sort/ap", feedback.assemble_case(
+        dp, "sort", "ap", spec, PAPER_STACK, c["grid_n"], trace,
+        c["margin"], device="cuda"))]
+    fb = feedback.FeedbackParams(policy=PerDiePolicy(),
+                                 faults=SensorFaultSpec(**faults))
+    return feedback.replay_cases(case, spec, fb, c["grid_n"],
+                                 c["interval_dt"], steps_per_interval=1,
+                                 n_cg=c["n_cg"], margin=c["margin"],
+                                 n_shards=n_shards,
+                                 device="cuda")["sort/ap"]
+
+
+def _batch_invariance() -> dict:
+    """Why the replay's sums and coarse solves are written as they are:
+    rows of a batch of 16 cases, in the sweep's field shape (7 x 18 x
+    18) and the main path's (7 x 36 x 36), summed in batches of 1, 4 and
+    6 — how many of the 16 per-case sums differ from the batch of 16's,
+    with one ``.sum`` over a case's volume and with ``thermal.case_sum``;
+    and the mg replay's coarsest factor and solve (a batch of 1, 2 and 3
+    against 6).  The port's versions must differ in none."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.core import cosim, multigrid, thermal
+    from repro_torch.core.floorplan import MM
+    out = {}
+    for shape in ((7, 18, 18), (7, 36, 36)):
+        x = torch.from_numpy(np.random.default_rng(0).normal(
+            size=(16,) + shape).astype(np.float32)).cuda()
+        plain16, case16 = x.sum(dim=(1, 2, 3)), thermal.case_sum(x)
+        for B in (1, 4, 6):
+            idx = range(0, 16 - 16 % B, B)
+            p = torch.cat([x[i:i + B].sum(dim=(1, 2, 3)) for i in idx])
+            c = torch.cat([thermal.case_sum(x[i:i + B]) for i in idx])
+            n = p.shape[0]
+            out[f"sum {shape} B={B}"] = (int((p != plain16[:n]).sum()),
+                                          int((c != case16[:n]).sum()), n)
+    grids = [thermal.Grid(die_w=math.sqrt(a) * MM, ny=24, nx=24, margin=6)
+             for w in TRIO for dp in (cosim.comparable_design_point(w),)
+             for a in (dp.ap_area_mm2, dp.simd_area_mm2)]
+    Fs = [g.fields("cuda") for g in grids]
+    F = {k: torch.stack([f[k] for f in Fs]) for k in Fs[0]}
+    cap = torch.stack([g.capacity_field("cuda") for g in grids])
+    rhs = torch.from_numpy(np.random.default_rng(2).normal(
+        size=tuple(cap.shape)).astype(np.float32)).cuda()
+
+    def port(sl):
+        levels = multigrid.build_levels({k: v[sl] for k, v in F.items()},
+                                        cap[sl] / (0.25 / 48 / 2))
+        b = torch.zeros_like(levels[-1][0]["g_pkg"]) + rhs[sl, :, :1, :1]
+        return multigrid.coarse_solve_fn(levels)(b)
+
+    # the library's batched factor and solve of the same SPD matrices
+    chol, _ = multigrid.coarse_factorization(multigrid.build_levels(
+        F, cap / (0.25 / 48 / 2)))
+    A = chol @ chol.transpose(-1, -2)
+    b = rhs.flatten(1)[:, :A.shape[-1], None]
+
+    def library(sl):
+        return torch.cholesky_solve(b[sl], torch.linalg.cholesky_ex(A[sl])[0])
+
+    for name, fn in (("library", library), ("port", port)):
+        full = fn(slice(0, 6))
+        for B in (1, 2, 3):
+            got = torch.cat([fn(slice(i, i + B)) for i in range(0, 6, B)])
+            out[f"coarse {name} B={B}"] = (int((got != full).sum()),
+                                           got.numel())
+    return out
+
+
+@phase("26 sharded replay and sweep")
+def sharded_paths(results):
+    import numpy as np
+    import torch
+    from repro_torch.core import cosim
+    from repro_torch.parallel import sharding
+    from repro_torch.stack import feedback
+    from repro_torch.sweep import run_sweep
+    ref = _chip_reference()["shard"]
+    out = {}
+    say("  several shards run as slices of the batch on the one card: "
+        "they test the sharding mechanism, not multi-card scaling")
+    inv = _batch_invariance()
+    for k, v in inv.items():
+        if k.startswith("sum"):
+            say(f"  {k}: {v[0]} of {v[2]} per-case sums differ from the "
+                f"batch of 16's with one .sum over the case, {v[1]} with "
+                "thermal.case_sum")
+            check(v[1] == 0, f"case_sum depends on the batch size ({k})")
+        else:
+            say(f"  {k}: {v[0]} of {v[1]} elements differ from the batch "
+                "of 6's")
+            check(not k.startswith("coarse port") or v[0] == 0,
+                  f"the coarse solve depends on the batch size ({k})")
+    out["batch_invariance"] = inv
+    spec = _sweep_spec("sweep_full")
+    cosim._ap_workload_trace.cache_clear()
+    reset_launches()
+    sweeps = {}
+    for n in (1, 3, 4):
+        t0 = time.perf_counter()
+        if n == 1:
+            res = run_sweep(spec, use_cache=False, n_shards=1, device="cuda")
+        else:
+            with _OneCardShards():
+                res = run_sweep(spec, use_cache=False, n_shards=n,
+                                device="cuda")
+        sweeps[n] = time.perf_counter() - t0
+        check(not res.n_failed, f"the {n}-shard full sweep has FAILED rows")
+        check(_same_records(res, KEPT["sweep_full"]), f"the {n}-shard full "
+              "sweep is not bit for bit phase 20's unsharded records")
+    say(f"  run_sweep(full spec, {len(res.records)} records): n_shards 1, "
+        f"3 (groups of 16 padded to 18), 4 bit for bit phase 20's "
+        f"unsharded records; " + ", ".join(
+            f"{n} shard(s) {t:.2f} s" for n, t in sweeps.items()))
+    stacks = {}
+    for key, solver in (("main_path", "pcg"), ("mg_path", "mg")):
+        t0 = time.perf_counter()
+        got = feedback.run_stack_cosim(TRIO, n_dram=2, grid_n=24,
+                                       n_intervals=48, solver=solver,
+                                       n_shards=1, device="cuda")
+        stacks[solver] = time.perf_counter() - t0
+        for w in TRIO:
+            for m in ("ap", "simd"):
+                check(_same_reports(got[w][m], KEPT[key][w][m]),
+                      f"{w}/{m} {solver} with n_shards=1 is not bit for "
+                      f"bit the unsharded run's")
+    say(f"  run_stack_cosim(trio, n_shards=1): pcg {stacks['pcg']:.2f} s, "
+        f"mg {stacks['mg']:.2f} s, every report bit for bit phases 5 and "
+        "11's")
+    faulted = {}
+    for key, shards in (("grid8", (1, 3, 4)), ("grid24", (1, 4))):
+        c = ref["cases"][key]
+        t0 = time.perf_counter()
+        base = _fault_replay(c["params"], ref["faults"], None)
+        t_base = time.perf_counter() - t0
+        times = {}
+        for n in shards:
+            t0 = time.perf_counter()
+            with _OneCardShards():
+                rep = _fault_replay(c["params"], ref["faults"], n)
+            times[n] = time.perf_counter() - t0
+            check(_same_reports(rep, base), f"faulted replay {key}: "
+                  f"{n} shard(s) not bit for bit the unsharded replay")
+        worst = 0.0
+        for name in ("peak_C", "min_C", "throttle"):
+            got = np.asarray(getattr(base, name), np.float64)
+            want = np.asarray(c[name], np.float64)
+            check(np.array_equal(np.isnan(got), np.isnan(want)),
+                  f"faulted replay {key}: {name} NaN where JAX's is not")
+            ok = ~np.isnan(want)
+            d = float(np.abs(got[ok] - want[ok]).max(initial=0.0))
+            if name != "min_C":
+                worst = max(worst, d)
+                check(d <= PEAK_TOL_C, f"faulted replay {key}: {name} "
+                      f"{d:.4f} from JAX's")
+        faulted[key] = dict(unsharded_s=t_base, sharded_s=times,
+                            max_delta_C=worst,
+                            nan_intervals=int(np.isnan(base.throttle).sum()))
+        say(f"  faulted sort replay {key}: shards {list(shards)} bit for "
+            f"bit the unsharded replay ({t_base:.2f} s; " + ", ".join(
+                f"{n}: {t:.2f} s" for n, t in times.items())
+            + f"); peaks and duties within {worst:.2e} C of JAX, NaN where "
+            f"JAX's is ({faulted[key]['nan_intervals']} intervals)")
+    launches = read_launches()
+    check_launched(launches, ("thermal_stencil", "ap_match", "mg_smooth"),
+                   "the sharded paths")
+    try:
+        sharding.sweep_mesh(2)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "sweep_mesh(2) did not raise on a one-card host")
+    say(f"  sweep_mesh(2) on {torch.cuda.device_count()} card(s): "
+        f"ValueError, as the reference's; launches {launches}")
+    out.update(sweep_s=sweeps, stack_s=stacks, faulted=faulted,
+               launches=launches)
+    results["sharded"] = out
+    return launches
+
+
+def _apfloat_run(op: str, n: int, n_bits: int, values=None):
+    """One FP32 op on the card on ``bench_cycles.py``'s inputs (normal
+    draws seeded by N) or on ``values``: (result, cycles of the op,
+    counters, trace digest, seconds of the op)."""
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch.core import apfloat
+    from repro_torch.core.engine import APEngine
+    eng = APEngine(n_words=n, n_bits=n_bits, device="cuda")
+    x, y, z = (apfloat.FpField.alloc(eng) for _ in range(3))
+    s = apfloat.FpScratch.alloc(eng)
+    if values is None:
+        rng = np.random.default_rng(n)
+        values = (rng.normal(size=n).astype(np.float32),
+                  rng.normal(size=n).astype(np.float32))
+    apfloat.load_fp32(eng, x, values[0])
+    apfloat.load_fp32(eng, y, values[1])
+    torch.cuda.synchronize()
+    c0 = eng.cycles
+    t0 = time.perf_counter()
+    getattr(apfloat, op)(eng, x, y, z, s)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    out = apfloat.read_fp32(eng, z)
+    h = hashlib.sha256()
+    for a in eng.trace_events():
+        h.update(np.ascontiguousarray(a).tobytes())
+    return out, eng.cycles - c0, eng.counters(), h.hexdigest(), sec
+
+
+def _ulps(a, b):
+    import numpy as np
+    ai = a.view(np.int32).astype(np.int64)
+    bi = b.view(np.int32).astype(np.int64)
+    ai = np.where(ai < 0, np.int64(-2 ** 31) - ai, ai)
+    bi = np.where(bi < 0, np.int64(-2 ** 31) - bi, bi)
+    return np.abs(ai - bi)
+
+
+@phase("27 lane sharding and AP float")
+def lane_sharding(results):
+    import functools
+    import hashlib
+    import importlib
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ap_megakernel import ops as mk_ops
+    from repro_torch.kernels.ap_megakernel import ref as mk_ref
+    from repro_torch.workloads import _device, registry, sort
+    out = {}
+
+    def no_plain(*a, **kw):
+        raise AssertionError("a plain version of the megakernel ran on "
+                             "the card")
+
+    plain = (mk_ref.group_scan_plain, mk_ref.group_scan_plain_sharded)
+    x = np.random.default_rng(0).integers(0, 256, 2 ** 20, dtype=np.uint64)
+    y0, c0 = KEPT["paper_sort"]
+    reset_launches()
+    sorts, suite = {}, {}
+    mk_ref.group_scan_plain = mk_ref.group_scan_plain_sharded = no_plain
+    try:
+        for n in (1, 2, 4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _OneCardShards():
+                y, ctr = sort.ap_sort(x, m=8, mode="megakernel", n_shards=n,
+                                      device="cuda")
+            sorts[n] = time.perf_counter() - t0
+            check(np.array_equal(y, y0) and _same_counters(ctr, c0),
+                  f"the 2^20 sort on {n} lane shard(s) is not bit for bit "
+                  "phase 15's")
+        for w in SUITE:
+            mod = importlib.import_module(f"repro_torch.workloads."
+                                          f"{_SUITE_ENTRY[w][0]}")
+            name = _SUITE_ENTRY[w][1]
+            entry = getattr(mod, name)
+            for n in (2, 4):
+                setattr(mod, name, functools.partial(entry, n_shards=n))
+                try:
+                    t0 = time.perf_counter()
+                    with _OneCardShards():
+                        ctr = registry.trace_counters(w, 1024,
+                                                      mode="megakernel",
+                                                      device="cuda")
+                    suite[f"{w}/{n}"] = time.perf_counter() - t0
+                finally:
+                    setattr(mod, name, entry)
+                check(_same_counters(ctr, KEPT[f"suite/{w}"]),
+                      f"{w} on {n} lane shards: counters or trace arrays "
+                      "differ from phase 14's")
+    finally:
+        mk_ref.group_scan_plain, mk_ref.group_scan_plain_sharded = plain
+    launches = read_launches()
+    check_launched(launches, ("ap_megakernel",), "the lane-sharded runs")
+    say(f"  ap_sort(2^20, megakernel) on 1, 2, 4 lane shards: bit for bit "
+        "phase 15's values, counters and trace; " + ", ".join(
+            f"{n}: {t:.2f} s" for n, t in sorts.items())
+        + f"; suite traces (1024) on 2 and 4 shards bit for bit phase "
+        f"14's; no plain version called; launches {launches}")
+
+    # every segment of a sharded sort round, at each shard width
+    from repro_torch.core import isa
+    from repro_torch.core.bitplane import Field
+    val, active, cand = Field(0, 8), Field(8, 1), Field(9, 1)
+    group = _device._min_extract_group(isa.copy(cand, active), val, active,
+                                       cand, readout=False)
+    segs = {}
+    for n in (1, 2, 4):
+        width = 32768 // n
+        sg = mk_ops.sharded_group(group, (torch.device("cuda", 0),))
+        rng = np.random.default_rng(width)
+        planes = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (10, width), dtype=np.int64)
+            .astype(np.int32)).cuda()
+        tag = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, width, dtype=np.int64).astype(np.int32)).cuda()
+        ms = []
+        for (a, b), dgs in zip(sg.segments, sg.groups):
+            dg = dgs[torch.device("cuda", 0)]
+            en = torch.from_numpy(rng.integers(0, 4, b - a) > 0).cuda()
+            got = mk_ops.run_group(planes, tag, dg, en)
+            want = mk_ref.group_scan_plain(planes, tag, dg.tables(), en)
+            check(all(torch.equal(g, w) for g, w in zip(got, want[:3])),
+                  f"sort-round segment {a}:{b} at {width} lanes differs "
+                  "from the plain version")
+            ms.append(cuda_ms(lambda: mk_ops.run_group(planes, tag, dg, en),
+                              50))
+        segs[width] = dict(segments=len(sg.segments), ms_per_segment=ms)
+        say(f"  sort round at {width} lanes a shard: {len(sg.segments)} "
+            f"unconditional segments, each bit for bit the plain version; "
+            f"{min(ms) * 1e3:.2f}-{max(ms) * 1e3:.2f} us a segment")
+
+    # FP32 on the AP
+    ref = _chip_reference()["apfloat"]
+    reset_launches()
+    fp = {}
+    for key, want in sorted(ref["runs"].items()):
+        op, n = key.split("/")
+        z, cyc, ctr, trace, sec = _apfloat_run(op, int(n), ref["n_bits"])
+        check(hashlib.sha256(np.ascontiguousarray(z.view(np.uint32))
+                             .tobytes()).hexdigest()
+              == want["result_sha256"], f"{key}: result bits differ from "
+              "JAX's")
+        check(cyc == want["cycles"] and ctr == want["counters"]
+              and trace == want["trace_sha256"], f"{key}: cycles "
+              f"{cyc}, counters or trace differ from JAX's")
+        fp[key] = dict(cycles=cyc, energy=ctr["energy"], seconds=sec)
+    say("  fp_mul, fp_add at N = 64, 1024: results, counters, energy and "
+        "trace bit for bit JAX's; " + ", ".join(
+            f"{k} {v['cycles']} cycles {v['seconds']:.2f} s"
+            for k, v in fp.items()))
+    n = 2 ** 20
+    rng = np.random.default_rng(n)
+    va = rng.normal(size=n).astype(np.float32)
+    vb = rng.normal(size=n).astype(np.float32)
+    va[:4] = [0.0, 3.5, 0.0, -1.25]
+    vb[:4] = [2.0, 0.0, 0.0, 1.25]
+    big = {}
+    for op, want, tol in (("fp_mul", va * vb, 2), ("fp_add", va + vb, 4)):
+        z, cyc, ctr, _, sec = _apfloat_run(op, n, ref["n_bits"], (va, vb))
+        zero = want == 0
+        check(bool((z[zero] == 0).all()), f"{op} at 2^20: a zero result "
+              "is not zero")
+        u = int(_ulps(z[~zero], want[~zero]).max())
+        check(u <= tol, f"{op} at 2^20: {u} ulp from NumPy (bound {tol})")
+        big[op] = dict(cycles=cyc, max_ulp=u, seconds=sec,
+                       n_zero=int(zero.sum()))
+    check(big["fp_mul"]["cycles"] == fp["fp_mul/1024"]["cycles"],
+          f"fp_mul cycles at 2^20 ({big['fp_mul']['cycles']}) differ from "
+          f"those at 1024 ({fp['fp_mul/1024']['cycles']})")
+    fp_launches = read_launches()
+    check_launched(fp_launches, ("ap_match",), "the FP32 ops")
+    say(f"  at N = 2^20 (352 bit columns): fp_mul {big['fp_mul']['cycles']}"
+        f" cycles (as at N = 1024; the paper's ~4400), "
+        f"{big['fp_mul']['max_ulp']} ulp, {big['fp_mul']['seconds']:.2f} s; "
+        f"fp_add {big['fp_add']['cycles']} cycles, "
+        f"{big['fp_add']['max_ulp']} ulp, {big['fp_add']['seconds']:.2f} s; "
+        f"zeros exact; launches {fp_launches}")
+    out.update(sort_s=sorts, suite_s=suite, launches=launches,
+               segments=segs, fp=fp, fp_2_20=big, fp_launches=fp_launches)
+    results["lane_sharding"] = out
+    return {"lane_sharding_27": launches, "apfloat_27": fp_launches}
+
+
 def _kernel_row(name, source, replaces, launches, r, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, **{k: r[k] for k in (
@@ -3327,9 +3779,12 @@ def main() -> int:
     coarsen_launches = coarsened_replay(results)
     fault_launches = fault_path(results)
     deep_launches = deep_stacks(results)
+    shard_launches = sharded_paths(results)
+    lane_launches = lane_sharding(results)
     new_paths = {"cosim_22": cosim_launches, "coarsened_replay_23":
                  coarsen_launches, "sensor_faults_24": fault_launches,
-                 **{f"deep_25:{k}": v for k, v in deep_launches.items()}}
+                 **{f"deep_25:{k}": v for k, v in deep_launches.items()},
+                 "sharded_26": shard_launches, **lane_launches}
 
     src = "src/repro_torch/kernels"
     ref = "src/repro/kernels"
@@ -3344,7 +3799,7 @@ def main() -> int:
 
     def sweep_paths(name):
         """A kernel's launches on each sweep path that launched it, and on
-        each of phases 22-25's paths."""
+        each of phases 22-27's paths."""
         return {**{f"sweep:{k}": v[name] for k, v in sweep_launches.items()
                    if v[name]}, **new_path_launches(name)}
 
@@ -3411,7 +3866,10 @@ def main() -> int:
                         "paper_sort_2^20":
                             sort_launches["ap_megakernel_unconditional"],
                         "suite_stack_path":
-                            suite_launches["ap_megakernel_unconditional"]},
+                            suite_launches["ap_megakernel_unconditional"],
+                        "lane_sharding_27": lane_launches[
+                            "lane_sharding_27"][
+                            "ap_megakernel_unconditional"]},
                     sweep_shapes=sweep_shapes("ap_megakernel"),
                     unconditional={
                         k: {f: results[f"mk_{k}"][f] for f in (

@@ -13,8 +13,10 @@ wrapper takes its plain PyTorch version instead.  The reference's kernel
 switches are accepted and change nothing, since the tensor's device picks
 each kernel: ``use_pallas`` is ignored, every ``backend`` name of
 ``APEngine.BACKENDS`` runs bit-identical passes, and the kernel wrappers
-ignore the Pallas options ``block_y``, ``block_lanes``, ``interpret``,
-``backend`` and ``mesh``.
+ignore the Pallas options ``block_y``, ``block_lanes``, ``interpret`` and
+``backend``.  ``n_shards`` (and the megakernel's ``mesh``) spread a case
+batch or the AP lanes over local devices of the call's device type
+(``repro_torch.parallel``), with the same bits as one device.
 """
 from __future__ import annotations
 

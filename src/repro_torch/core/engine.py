@@ -32,7 +32,11 @@ the pass-schedule kernel ``kernels/ap_match`` for ``"jnp"`` and
 ``"pallas"``, the op-group megakernel for ``"megakernel"`` and
 ``"megakernel_pallas"``.  On a card each is the hand-written kernel, on
 the CPU its plain version; every path is bit-identical.  Lane sharding
-(``n_shards``) is not ported.
+(``n_shards``, megakernel backend only) splits the planes' lanes over
+``n_shards`` local devices of the engine's device type
+(:attr:`APEngine.mesh`); the engine keeps its planes whole on ``device``
+and each megakernel group runs sharded
+(``kernels.ap_megakernel.ops.run_group(mesh=)``).
 """
 from __future__ import annotations
 
@@ -330,10 +334,17 @@ class APEngine:
             raise ValueError(f"unknown backend {backend!r}; expected one "
                              f"of {self.BACKENDS}")
         if n_shards is not None:
-            raise NotImplementedError(
-                "n_shards (lane sharding of the AP planes over several "
-                "cards) is not ported yet (ROADMAP Queue 1, item 2)")
+            if backend != "megakernel":
+                raise ValueError(
+                    "n_shards requires backend='megakernel' (lane sharding "
+                    "is a megakernel execution mode)")
+            if bp.n_lanes(n_words) % n_shards != 0:
+                raise ValueError(
+                    f"n_lanes={bp.n_lanes(n_words)} not divisible by "
+                    f"n_shards={n_shards}; pick n_words a multiple of "
+                    f"{bp.LANE * n_shards}")
         self.device = resolve_device(device)
+        self.n_shards = n_shards
         self.n_words = n_words
         self.n_bits = n_bits
         self.power = power
@@ -560,12 +571,22 @@ class APEngine:
             self.planes, self.tag, matched = mk_ops.run_group(
                 self.planes, self.tag, OpGroup.from_schedule(*tables),
                 backend="pallas" if self.backend == "megakernel_pallas"
-                else "jnp")
+                else "jnp", mesh=self.mesh)
         else:
             self.planes, matched = ap_ops.run_schedule(
                 self.planes, *schedule_tensors(*tables, self.device),
                 col_range=schedule_col_range(tables[0], tables[2]))
         self.charge_run(sched, matched[:P].cpu().numpy())
+
+    @property
+    def mesh(self) -> tuple[torch.device, ...] | None:
+        """The devices the lanes shard over when sharded, else None
+        (``repro_torch.parallel.sharding.ap_mesh`` of the engine's device
+        type)."""
+        if self.n_shards is None:
+            return None
+        from repro_torch.parallel.sharding import ap_mesh
+        return ap_mesh(self.n_shards, device=self.device)
 
     # -------------------------------------------------- functional bridge
     def state(self) -> APState:

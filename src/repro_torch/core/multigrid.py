@@ -178,6 +178,11 @@ def coarse_factorization(levels: list):
     and factored ONCE per hierarchy.  Returns ``(chol, s)`` with ``chol``
     the lower factor ``[..., n, n]`` and ``s`` the scaling ``[..., n]``.
     Raises ``RuntimeError`` if a scaled matrix is not positive definite.
+
+    On a card a batch is factored one case at a time: the batched
+    factorization rounds a case differently from the one-case call, and
+    a case's factor must not depend on how many cases share its batch
+    (the sharded case batch gives bitwise the unsharded one).
     """
     F, d_extra = levels[-1]
     shape = F["g_pkg"].shape
@@ -193,7 +198,12 @@ def coarse_factorization(levels: list):
     A = A + torch.diag_embed(void.to(A.dtype))      # void cells: u = 0
     s = 1.0 / torch.sqrt(torch.where(void, 1.0, d))  # Jacobi scaling
     As = s[..., :, None] * A * s[..., None, :]
-    chol, info = torch.linalg.cholesky_ex(As)
+    if As.is_cuda and As.dim() > 2:
+        flat = [torch.linalg.cholesky_ex(a) for a in As.reshape(-1, n, n)]
+        chol = torch.stack([c for c, _ in flat]).reshape(As.shape)
+        info = torch.stack([i for _, i in flat])
+    else:
+        chol, info = torch.linalg.cholesky_ex(As)
     bad = int((info != 0).sum())
     if bad:
         raise RuntimeError(
@@ -204,11 +214,23 @@ def coarse_factorization(levels: list):
 
 def coarse_solve_fn(levels: list):
     """Exact coarsest-level solve closure (see
-    :func:`coarse_factorization`)."""
+    :func:`coarse_factorization`).
+
+    On a card a batch of one case is solved as a batch of two (the case
+    twice): the library takes another route for one matrix than for
+    several, which rounds differently, and a case's solve must not depend
+    on how many cases share its batch."""
     chol, s = coarse_factorization(levels)
+    pad = chol.is_cuda and chol.dim() == 3 and chol.shape[0] == 1
+    if pad:
+        chol = torch.cat([chol, chol])
 
     def solve(b):
-        y = torch.cholesky_solve((s * b.flatten(-3))[..., None], chol)
+        rhs = (s * b.flatten(-3))[..., None]
+        if pad:
+            y = torch.cholesky_solve(torch.cat([rhs, rhs]), chol)[:1]
+        else:
+            y = torch.cholesky_solve(rhs, chol)
         return (s * y[..., 0]).reshape(b.shape)
 
     return solve

@@ -272,11 +272,31 @@ def _as_precond(Minv):
     return Minv if callable(Minv) else (lambda r: Minv * r)
 
 
+def case_sum(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Per-case sum of ``x`` [B, ...] over every dim after the first,
+    whose value does not depend on B.
+
+    A CUDA reduction lays its threads out by the number of outputs, so
+    one sum over a case's whole volume would add its terms in an order
+    that changes with the batch size, and a case would round differently
+    alone than among sixteen (the sharded case batch must give bitwise
+    the unsharded one).  On a card the sum therefore runs one trailing
+    dim at a time: each such reduction has a short row (under 64 terms at
+    the replays' widths, or at least 16 rows a case), which the reduction
+    lays out the same way for any batch.  The CPU's sum is the same for
+    any batch already and stays one call.
+    """
+    if not x.is_cuda:
+        return x.sum(dim=tuple(range(1, x.dim())), keepdim=keepdim)
+    for d in reversed(range(1, x.dim())):
+        x = x.sum(dim=d, keepdim=keepdim)
+    return x
+
+
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-case dot product over every dim after the first, shaped to
-    broadcast against the case tensors."""
-    dims = tuple(range(1, a.dim()))
-    return (a * b).sum(dim=dims, keepdim=True)
+    broadcast against the case tensors (:func:`case_sum`)."""
+    return case_sum(a * b, keepdim=True)
 
 
 def pcg_fixed(A, Minv, b: torch.Tensor, n_iter: int) -> torch.Tensor:

@@ -25,6 +25,17 @@ group in independent CTAs across the card, as :func:`plan_unconditional`
 picks.  ``run_group.unconditional_launches`` counts the launches of
 unconditional groups (also counted in ``run_group.launches``).
 :func:`cluster_probe` measures on the card the latencies that bound both.
+
+With ``mesh`` (a tuple of devices, ``repro_torch.parallel.sharding.
+ap_mesh``) a group runs lane-sharded: the planes and tag split into
+equal shards of lanes, one a device, and every op's count is summed over
+the shards before any op that branches on it reads it (the reference's
+``shard_map`` of its jnp scan with a ``psum`` an op).  The kernel takes
+no count from another device, so :func:`sharded_group` splits the group
+after each op a later op branches on; each segment runs on every shard
+as an unconditional group whose ``enabled`` mask is formed on the first
+shard's device from the counts summed so far, and its counts are summed
+there.  Nothing crosses to the host, and no plain version runs on a card.
 """
 from __future__ import annotations
 
@@ -318,15 +329,45 @@ def run_group(planes: torch.Tensor, tag: torch.Tensor,
 
     planes : int32[n_bits, n_lanes];  tag : int32[n_lanes]
     enabled: optional bool[P] op mask, NumPy or a tensor (default: all on)
+    mesh   : optional tuple of devices — shards planes/tag over their lanes
+             (backend ``"jnp"`` only; n_lanes must divide evenly), see
+             :func:`run_group_sharded`; the results come back on the
+             planes' device
     The inputs are left unchanged: the kernel writes new outputs, and the
-    wrapper copies and fills nothing.  ``backend``, ``mesh``,
-    ``block_lanes`` and ``interpret`` are the reference's options and are
-    ignored: the planes' device picks the kernel or the plain version,
-    and the lanes are not sharded (the result is the same).  A group runs
-    as :func:`plan_conditional` or :func:`plan_unconditional` plans it.
+    wrapper copies and fills nothing.  ``backend``, ``block_lanes`` and
+    ``interpret`` are the reference's options and change nothing (beyond
+    the reference's check of ``backend`` with ``mesh``): the planes'
+    device picks the kernel or the plain version.  A group runs as
+    :func:`plan_conditional` or :func:`plan_unconditional` plans it.
     """
     obs.count("kernels/launch/ap_megakernel")
-    obs.count(f"kernels/launch/ap_megakernel/{backend}")
+    obs.count(f"kernels/launch/ap_megakernel/{backend}"
+              + ("_sharded" if mesh is not None else ""))
+    if mesh is not None:
+        if backend != "jnp":
+            raise ValueError(
+                f"sharded megakernel execution requires backend='jnp' "
+                f"(got {backend!r})")
+        mesh = tuple(mesh)
+        n_lanes = planes.shape[1]
+        n_shards = len(mesh)
+        if n_lanes % n_shards != 0:
+            raise ValueError(
+                f"n_lanes={n_lanes} not divisible by n_shards={n_shards}; "
+                f"pick n_words a multiple of {32 * n_shards}")
+        sg = group if type(group) is ShardedGroup \
+            else sharded_group(group, mesh)
+        pl, tg, matched = run_group_sharded(
+            *split_lanes(planes, tag, mesh), sg, enabled)
+        return (*gather_lanes(pl, tg, planes.device), matched)
+    return _run_one(planes, tag, group, enabled)
+
+
+def _run_one(planes: torch.Tensor, tag: torch.Tensor,
+             group: OpGroup | DeviceGroup, enabled=None
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One group on one device: the kernel on a card, the plain version
+    on the CPU (:func:`run_group` without its obs counts)."""
     if not planes.is_cuda:
         if planes.device.type != "cpu":
             raise ValueError(f"unsupported device {planes.device}")
@@ -393,6 +434,109 @@ def run_group(planes: torch.Tensor, tag: torch.Tensor,
 
 run_group.launches = 0
 run_group.unconditional_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# lane sharding
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardedGroup:
+    """An op group cut for lane-sharded execution on ``devices``.
+
+    ``segments[i]`` is an op range ``(a, b)``: a segment ends after each
+    op a later op branches on (:func:`branched_on`), so every condition
+    of a segment reads a count of an earlier segment, summed over the
+    shards by then.  ``groups[i][d]`` is the segment as an unconditional
+    :class:`DeviceGroup` (conditions cleared) on device ``d``;
+    ``cond``/``src`` (on the first device) give each op's condition and
+    the op it reads, from which a segment's ``enabled`` is formed."""
+    devices: tuple
+    n_ops: int
+    segments: tuple
+    groups: tuple
+    conditional: tuple      # bool per segment: some op of it has cond > 0
+    cond: torch.Tensor
+    src: torch.Tensor
+
+
+def sharded_group(group: OpGroup, devices) -> ShardedGroup:
+    """Cut ``group`` into segments and upload each to every distinct
+    device of ``devices`` once (a device program reuses the result for
+    every run of the group)."""
+    devices = tuple(torch.device(d) for d in devices)
+    P = group.n_ops
+    ends = np.flatnonzero(branched_on(group.cond)) + 1
+    bounds = [0] + [int(e) for e in ends if e < P] + [P]
+    segments = tuple(zip(bounds[:-1], bounds[1:]))
+    groups, conditional = [], []
+    for a, b in segments:
+        seg = OpGroup(group.op[a:b], np.zeros(b - a, np.int32),
+                      group.cmp_cols[a:b], group.cmp_key[a:b],
+                      group.w_cols[a:b], group.w_key[a:b])
+        groups.append({d: device_group(seg, d) for d in set(devices)})
+        conditional.append(bool(group.cond[a:b].max() > 0))
+    cond = torch.from_numpy(group.cond.astype(np.int64)).to(devices[0])
+    src = (torch.arange(P, device=devices[0]) - cond).clamp(min=0)
+    return ShardedGroup(devices, P, segments, tuple(groups),
+                        tuple(conditional), cond, src)
+
+
+def split_lanes(planes: torch.Tensor, tag: torch.Tensor, devices
+                ) -> tuple[list, list]:
+    """Planes ``[n_bits, n_lanes]`` and tag ``[n_lanes]`` as equal lane
+    shards, shard s on ``devices[s]``."""
+    w = planes.shape[1] // len(devices)
+    return ([planes[:, s * w:(s + 1) * w].to(d).contiguous()
+             for s, d in enumerate(devices)],
+            [tag[s * w:(s + 1) * w].to(d).contiguous()
+             for s, d in enumerate(devices)])
+
+
+def gather_lanes(planes: list, tag: list, device
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The lane shards laid side by side again, on ``device``."""
+    return (torch.cat([p.to(device) for p in planes], dim=1),
+            torch.cat([t.to(device) for t in tag]))
+
+
+def run_group_sharded(planes: list, tag: list, sg: ShardedGroup,
+                      enabled=None) -> tuple[list, list, torch.Tensor]:
+    """Run ``sg`` over lane shards (``planes[s]``, ``tag[s]`` on
+    ``sg.devices[s]``) -> (planes' list, tag' list, matched int32[P] on
+    the first device, the counts summed over the shards).
+
+    Segment by segment: its ``enabled`` is the op mask AND, for each op
+    with ``cond > 0``, (the summed count of the op it reads > 0), formed
+    on the first device; it is launched on every shard before any count
+    is gathered, and the shards' counts are summed on the first device.
+    """
+    if len(planes) != len(sg.devices):
+        raise ValueError(f"{len(planes)} plane shards for "
+                         f"{len(sg.devices)} devices")
+    home = sg.devices[0]
+    en_all = None
+    if enabled is not None:
+        en_all = torch.as_tensor(enabled, device=home)
+        en_all = en_all if en_all.dtype == torch.bool else en_all != 0
+        if en_all.shape != (sg.n_ops,):
+            raise ValueError(f"enabled must have shape ({sg.n_ops},); got "
+                             f"{tuple(en_all.shape)}")
+    matched = torch.zeros(sg.n_ops, dtype=torch.int32, device=home)
+    for (a, b), dgs, cnd in zip(sg.segments, sg.groups, sg.conditional):
+        en = None if en_all is None else en_all[a:b]
+        if cnd:
+            ok = (sg.cond[a:b] == 0) | (matched[sg.src[a:b]] > 0)
+            en = ok if en is None else en & ok
+        outs = [_run_one(p, t, dgs[d], None if en is None else en.to(d))
+                for p, t, d in zip(planes, tag, sg.devices)]
+        planes = [o[0] for o in outs]
+        tag = [o[1] for o in outs]
+        total = outs[0][2].to(home)
+        for o in outs[1:]:
+            total = total + o[2].to(home)
+        matched[a:b] = total
+    return planes, tag, matched
 
 
 def _launch_params(dg: DeviceGroup, n_bits: int, n_lanes: int):

@@ -29,9 +29,13 @@ compare tag for PASS/CMP ops, the persistent TAG for WRITE.
 ``csrc/ap_megakernel.cu`` (which :mod:`.ops` launches for planes on a
 card): the CPU runs it, and ``chip_smoke.py`` holds the kernel to it.
 
-Port note: the reference's lane sharding (``axis_name``/psum) is not
-ported; planes, tags and keys are int32 holding the reference's uint32
-bits, and a broadcast key bit is ``-key``.
+:func:`group_scan_plain_sharded` is the plain version of the lane-sharded
+group (the reference's ``group_scan`` with ``axis_name``): the planes
+and tag split over shards of lanes, each op's count summed over the
+shards before any predicate reads it.
+
+Port note: planes, tags and keys are int32 holding the reference's
+uint32 bits, and a broadcast key bit is ``-key``.
 """
 from __future__ import annotations
 
@@ -170,11 +174,30 @@ def group_scan_plain(planes: torch.Tensor, tag: torch.Tensor, tables,
     listed twice ends with its LAST key — the kernel's sequential
     read-modify-write.
     """
+    (planes,), (tag,), matched, executed = group_scan_plain_sharded(
+        [planes], [tag], tables, enabled)
+    return planes, tag, matched, executed
+
+
+def group_scan_plain_sharded(planes: Sequence[torch.Tensor],
+                             tag: Sequence[torch.Tensor], tables,
+                             enabled=None) -> tuple:
+    """:func:`group_scan_plain` over lane shards: ``planes[s]`` int32
+    ``[n_bits, lanes_s]`` and ``tag[s]`` ``[lanes_s]`` on any devices.
+
+    Each op runs on every shard, and its count is the sum of the shards'
+    popcounts, taken before any later op's predicate reads it (the
+    reference's ``psum`` in ``group_scan(axis_name=)``), so the result is
+    the unsharded group's on the lanes laid side by side.  Returns
+    (planes' list, tag' list, matched int32[P], executed bool[P]), the
+    counts on the first shard's device.
+    """
     op, cond, cc, ck, wc, wk = (_host(t) for t in tables)
     P = int(op.shape[0])
     en = np.ones(P, bool) if enabled is None else _host(enabled).astype(bool)
-    dev = planes.device
-    planes, tag = planes.clone(), tag.clone()
+    dev = planes[0].device
+    planes = [p.clone() for p in planes]
+    tag = [t.clone() for t in tag]
     matched = [0] * P
     executed = [False] * P
     for p in range(P):
@@ -183,20 +206,22 @@ def group_scan_plain(planes: torch.Tensor, tag: torch.Tensor, tables,
         if not (en[p] and prev > 0):
             continue
         executed[p] = True
-        fresh = None
-        if opc != OP_WRITE:
-            fresh = torch.full_like(tag, -1)
-            for c, k in zip(cc[p].tolist(), ck[p].tolist()):
-                fresh = fresh & ~(planes[c] ^ _lane_mask(k))
-            if opc == OP_CMP_TAG:
-                fresh = fresh & tag
-        wtag = tag if opc == OP_WRITE else fresh
-        matched[p] = int(bp.popcount(wtag))
-        if opc in (OP_PASS, OP_WRITE):
-            for c, k in zip(wc[p].tolist(), wk[p].tolist()):
-                planes[c] = (planes[c] & ~wtag) | (_lane_mask(k) & wtag)
-        if opc in (OP_CMP, OP_CMP_TAG):
-            tag = fresh
+        for s in range(len(planes)):
+            pl, tg = planes[s], tag[s]
+            fresh = None
+            if opc != OP_WRITE:
+                fresh = torch.full_like(tg, -1)
+                for c, k in zip(cc[p].tolist(), ck[p].tolist()):
+                    fresh = fresh & ~(pl[c] ^ _lane_mask(k))
+                if opc == OP_CMP_TAG:
+                    fresh = fresh & tg
+            wtag = tg if opc == OP_WRITE else fresh
+            matched[p] += int(bp.popcount(wtag))
+            if opc in (OP_PASS, OP_WRITE):
+                for c, k in zip(wc[p].tolist(), wk[p].tolist()):
+                    pl[c] = (pl[c] & ~wtag) | (_lane_mask(k) & wtag)
+            if opc in (OP_CMP, OP_CMP_TAG):
+                tag[s] = fresh
     return (planes, tag, torch.tensor(matched, dtype=torch.int32, device=dev),
             torch.tensor(executed, dtype=torch.bool, device=dev))
 

@@ -50,12 +50,17 @@ Where the API differs from the reference:
   all K readings ``[B, K, L]`` as ``sensor_T``; every case of the batch
   gets the same seeded draws, as every case of the reference's ``vmap``
   reads the same key chain.
-- Not ported yet, and rejected where asked for: ``n_shards`` (ROADMAP
-  Queue 1, item 2.5).  ``closed_loop_sharded`` is not ported either.
+- ``n_shards`` (:func:`closed_loop_sharded`) slices the case batch over
+  local devices of the inputs' type, a slice a device, where the
+  reference ``shard_map`` s it over a mesh.  No per-case sum, coarse
+  factor or coarse solve of the replay depends on the batch size
+  (``thermal.case_sum``, ``multigrid.coarse_factorization``), so any
+  shard count gives bitwise the unsharded results.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -215,20 +220,12 @@ def _closed_loop(dyn_frames, leak0, refresh0, logic_mask, F, cap3,
         dTc = dTk
         die = dTc[win]
         ys.append((die.amax(dim=(2, 3)), die.amin(dim=(2, 3)), res, f,
-                   p_ref.sum(dim=(1, 2, 3)), p_leak.sum(dim=(1, 2, 3)),
-                   P_base.sum(dim=(1, 2, 3))))
+                   thermal.case_sum(p_ref), thermal.case_sum(p_leak),
+                   thermal.case_sum(P_base)))
     mx, mn, res, f, ref_W, leak_W, dyn_W = (torch.stack(y, dim=1)
                                             for y in zip(*ys))
     return (dTc + t_amb, mx + t_amb, mn + t_amb, res, f, ref_W, leak_W,
             dyn_W)
-
-
-def _check_unported(solver: str, n_shards=None) -> None:
-    thermal.check_solver(solver)
-    if n_shards:
-        raise NotImplementedError(
-            "n_shards (the sharded case batch) is not ported yet "
-            "(ROADMAP Queue 1, item 2.5)")
 
 
 def closed_loop_replay(dyn_frames, leak0, refresh0, logic_mask, F: dict,
@@ -252,7 +249,7 @@ def closed_loop_replay(dyn_frames, leak0, refresh0, logic_mask, F: dict,
     peak_C [T,n_die], min_C [T,n_die], residual_C [T], throttle [T],
     refresh_W [T], leak_W [T], dyn_W [T]).
     """
-    _check_unported(solver)
+    thermal.check_solver(solver)
     out = _closed_loop(dyn_frames[None], leak0[None], refresh0[None],
                        logic_mask[None], {k: v[None] for k, v in F.items()},
                        cap3[None], interval_dt, theta, t_amb, fb=fb,
@@ -272,12 +269,51 @@ def closed_loop_batch(dyn_frames, leak0, refresh0, logic_mask, F: dict,
     """Closed-loop replay over a leading design-point batch: every input
     of :func:`closed_loop_replay` with a leading ``[B]`` dimension, and
     every output likewise."""
-    _check_unported(solver)
+    thermal.check_solver(solver)
     return _closed_loop(dyn_frames, leak0, refresh0, logic_mask, F, cap3,
                         interval_dt, theta, t_amb, fb=fb,
                         steps_per_interval=steps_per_interval, n_cg=n_cg,
                         n_die=n_die, margin=margin, die_n=die_n,
                         solver=solver, n_mg=n_mg)
+
+
+def closed_loop_sharded(dyn_frames, leak0, refresh0, logic_mask, F: dict,
+                        cap3, interval_dt, theta: float = 1.0,
+                        t_amb: float = AMBIENT_C, *, fb: FeedbackParams,
+                        die_n: int, n_die: int,
+                        steps_per_interval: int = 2, n_cg: int = 40,
+                        margin: int = 0, use_pallas: bool = False,
+                        solver: str = "pcg", n_mg: int = 3,
+                        n_shards: int | None = None):
+    """:func:`closed_loop_batch` partitioned over local devices.
+
+    The case batch is padded to a multiple of the shard count (repeating
+    the last case; padding rows are dropped from every output), and each
+    shard's slice replays on its own device of
+    ``repro_torch.parallel.sharding.sweep_mesh`` (of the inputs' device
+    type).  Each device runs the identical per-case program on its slice,
+    and no sum, coarse factor or coarse solve of a case depends on how
+    many cases share its launch (``thermal.case_sum``,
+    ``multigrid.coarse_factorization``), so results are bitwise those of
+    the unsharded batch for ANY shard count — the property the sweep
+    cache relies on.
+    ``F`` is the dict of batched fields; the outputs come back on the
+    inputs' device.
+    """
+    from repro_torch.parallel import sharding as shardlib
+    thermal.check_solver(solver)
+    mesh = shardlib.sweep_mesh(n_shards, device=dyn_frames.device)
+    batch = (dyn_frames, leak0, refresh0, logic_mask, dict(F), cap3)
+    batch, n_cases = shardlib.pad_case_batch(batch, len(mesh))
+
+    def fn(tree):
+        return closed_loop_batch(
+            *tree, interval_dt, theta, t_amb, fb=fb, die_n=die_n,
+            n_die=n_die, steps_per_interval=steps_per_interval,
+            n_cg=n_cg, margin=margin, solver=solver, n_mg=n_mg)
+
+    out = shardlib.shard_case_batch(fn, mesh)(batch)
+    return shardlib.unpad_case_batch(out, n_cases)
 
 
 # ---------------------------------------------------------------------------
@@ -553,17 +589,21 @@ def replay_cases(cases, spec: StackSpec, fb: FeedbackParams, grid_n: int,
     case must share the stack ``spec`` and grid shape; NumPy leaves and
     tensors on any device are accepted and moved to ``device``.  Returns
     {label: StackReport}; the results cross to the host once, at the end.
+    ``n_shards`` routes through :func:`closed_loop_sharded` over that many
+    local devices of ``device`` 's type (0/None = the plain batch on
+    ``device``).
     """
-    _check_unported(solver, n_shards=n_shards)
+    thermal.check_solver(solver)
     dev = resolve_device(device)
     margin = grid_n // 4 if margin is None else margin
     labels = [label for label, _ in cases]
     dyns, leaks, refs, masks, Fs, caps = zip(*(leaves for _, leaves in cases))
+    replay = closed_loop_batch if not n_shards else functools.partial(
+        closed_loop_sharded, n_shards=n_shards)
     with obs.span("feedback/replay", cases=len(labels), grid_n=grid_n,
-                  solver=solver, n_shards=0):
-        Fb = stencil_ops.pack_fields(
-            {k: _batch([F[k] for F in Fs], dev) for k in Fs[0]})
-        out = closed_loop_batch(
+                  solver=solver, n_shards=n_shards or 0):
+        Fb = {k: _batch([F[k] for F in Fs], dev) for k in Fs[0]}
+        out = replay(
             _batch(dyns, dev), _batch(leaks, dev), _batch(refs, dev),
             _batch(masks, dev), Fb, _batch(caps, dev), interval_dt, theta,
             fb=fb, die_n=grid_n, n_die=spec.n_die_layers,
@@ -606,7 +646,7 @@ def run_stack_cosim(workloads=("dmm", "fft", "bs"), n_dram: int = 2,
     Returns ``{workload: {"ap": StackReport, "simd": StackReport},
     "design_points": {...}, "spec": StackSpec, ...}``.
     """
-    _check_unported(solver, n_shards=n_shards)
+    thermal.check_solver(solver)
     dev = resolve_device(device)
     spec = dram_on_logic(n_dram, params)
     margin = grid_n // 4
@@ -630,7 +670,7 @@ def run_stack_cosim(workloads=("dmm", "fft", "bs"), n_dram: int = 2,
                            theta=theta,
                            steps_per_interval=steps_per_interval,
                            n_cg=n_cg, margin=margin, solver=solver,
-                           n_mg=n_mg, device=dev)
+                           n_mg=n_mg, n_shards=n_shards, device=dev)
     out: dict = {"design_points": dps, "spec": spec,
                  "interval_s": interval_dt, "t_end": t_end, "fb": fb}
     for label, rep in reports.items():

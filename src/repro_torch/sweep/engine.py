@@ -19,8 +19,9 @@ raises ``ValueError`` or ``FloatingPointError`` is demoted to FAILED
 records, as in the reference; any other error propagates, so a FAILED
 row never hides the card: a CUDA or kernel error is a ``RuntimeError``,
 and a shape a kernel cannot take on the card (past its 32-bit indices)
-is a ``NotImplementedError``.
-``n_shards`` is not ported yet and raises (ROADMAP Queue 1, item 2.5).
+is a ``NotImplementedError``.  ``n_shards`` slices each group's case
+batch over that many local devices of ``device`` 's type
+(``stack.feedback.closed_loop_sharded``).
 """
 from __future__ import annotations
 
@@ -142,10 +143,13 @@ class SweepResult:
 # ---------------------------------------------------------------------------
 
 def _run_group(spec: SweepSpec, points: list[SweepPoint], n_dram: int,
-               fb_mode: str, policy: str, params: StackParams, dev
+               fb_mode: str, policy: str, params: StackParams,
+               n_shards: int | None = None, *, device="cuda"
                ) -> dict[tuple[SweepPoint, str], SweepRecord]:
     """Replay one (n_dram, fb_mode, policy) group as a single batch on
-    ``dev``."""
+    ``device``, optionally partitioned over local devices
+    (``n_shards``)."""
+    dev = resolve_device(device)
     stack_spec = dram_on_logic(n_dram, params)
     fb = resolve_fb(fb_mode, spec.n_picard, policy)
     margin = spec.grid_n // 4
@@ -180,7 +184,7 @@ def _run_group(spec: SweepSpec, points: list[SweepPoint], n_dram: int,
             cases, stack_spec, fb, spec.grid_n, interval_dt,
             theta=spec.theta, steps_per_interval=spec.steps_per_interval,
             n_cg=spec.n_cg, margin=margin, solver=spec.solver,
-            n_mg=spec.n_mg, device=dev)
+            n_mg=spec.n_mg, n_shards=n_shards, device=dev)
     return {(p, mc): SweepRecord(point=p, machine=mc,
                                  report=reports[f"{p.label}/{mc}"])
             for p, mc in keys}
@@ -224,14 +228,13 @@ def run_sweep(spec: SweepSpec, cache_dir=None, use_cache: bool = True,
     and written after a live run, so a second invocation of the same spec
     is served bit-identically from disk.
 
-    ``n_shards`` (the reference's sharded case batch) is not ported yet
-    and raises ``NotImplementedError``.
+    ``n_shards`` partitions every group's case batch over that many
+    local devices of ``device`` 's type (None/0 = the plain batch on
+    ``device``).  It is an EXECUTION knob, not part of the spec:
+    per-case results are bitwise identical for any shard count, so cache
+    keys and cached artifacts do not depend on it.
     """
     from repro_torch.sweep import cache
-    if n_shards:
-        raise NotImplementedError(
-            "run_sweep(n_shards=) (the sharded case batch) is not ported "
-            "yet (ROADMAP Queue 1, item 2.5)")
     dev = resolve_device(device)
     if params != PAPER_STACK:
         use_cache = False       # cache keys don't cover custom stack params
@@ -259,7 +262,8 @@ def run_sweep(spec: SweepSpec, cache_dir=None, use_cache: bool = True,
                 # other error (a CUDA or kernel fault) propagates
                 try:
                     results.update(_run_group(spec, pts, n_dram, fb_mode,
-                                              pol, params, dev))
+                                              pol, params, n_shards,
+                                              device=dev))
                 except (ValueError, FloatingPointError) as e:
                     obs.count("sweep/groups_failed")
                     results.update(_failed_group(

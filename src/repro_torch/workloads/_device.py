@@ -29,7 +29,10 @@ the host accounting in one vectorized :meth:`APEngine.charge_bulk` fold.
 Port note: the reference compiles these loops with ``jax.jit`` and
 ``lax.scan``; here each is a Python loop of device ops (and, in
 megakernel mode, one kernel launch a round) that reads nothing back until
-the loop ends.  The lane-sharded runner is not ported.  ``obs`` counts
+the loop ends.  With a lane-sharded engine (``n_shards``) the planes and
+tag stay split over the engine's devices for the whole loop, each round
+runs as ``ap_megakernel.ops.run_group_sharded``'s segments, and a
+round's termination reads the count summed over the shards.  ``obs`` counts
 what the reference counts: ``kernels/launch/ap_megakernel/
 min_extract_rounds`` once a megakernel-mode extraction, and
 ``kernels/launch/ap_megakernel`` once a host-level launch — here each
@@ -324,7 +327,7 @@ def _min_extract_group(copy_sched: PassSchedule, val: Field, active: Field,
 
 
 def _mk_rounds(state: E.APState, dg: mk_ops.DeviceGroup, remaining: int,
-               rounds: int, readout: bool):
+               rounds: int, readout: bool, sg: mk_ops.ShardedGroup = None):
     """Run ``rounds`` op-group executions with the same termination /
     masking semantics as :func:`min_extract_rounds`: every round runs the
     group from the carried state, and a round past the end keeps that
@@ -336,23 +339,48 @@ def _mk_rounds(state: E.APState, dg: mk_ops.DeviceGroup, remaining: int,
     after the loop from every round's counts at once: a round adds its
     delta unless the rounds were done before it (integer sums, so the
     order does not matter).
+
+    With ``sg`` (a lane-sharded engine's group) the planes and tag stay
+    split over ``sg.devices`` across the rounds and are laid side by side
+    again at the end; ``dg`` then only supplies the tables the counters
+    are formed from.
     """
     dev = state.planes.device
     count_idx = dg.n_ops - (3 if readout else 2)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     rem = torch.tensor(remaining, dtype=torch.int32, device=dev)
-    planes, tag = state.planes, state.tag
+    if sg is None:
+        devices = (dev,)
+        planes, tag = [state.planes], [state.tag]
+
+        def step(planes, tag):
+            p, t, matched = mk_ops.run_group(planes[0], tag[0], dg)
+            return [p], [t], matched
+    else:
+        devices = sg.devices
+        planes, tag = mk_ops.split_lanes(state.planes, state.tag, devices)
+
+        def step(planes, tag):
+            obs.count("kernels/launch/ap_megakernel")
+            obs.count("kernels/launch/ap_megakernel/jnp_sharded")
+            return mk_ops.run_group_sharded(planes, tag, sg)
     ys = ([], [], [])
     for _ in range(rounds):
-        new_planes, new_tag, matched = mk_ops.run_group(planes, tag, dg)
+        new_planes, new_tag, matched = step(planes, tag)
         count = matched[count_idx]
         new_rem = rem - count
-        for y, v in zip(ys, (matched, new_tag, done)):
+        out_tag = new_tag[0] if len(new_tag) == 1 \
+            else torch.cat([t.to(dev) for t in new_tag])
+        for y, v in zip(ys, (matched, out_tag, done)):
             y.append(v)
-        planes = torch.where(done, planes, new_planes)
-        tag = torch.where(done, tag, new_tag)
+        keep = [done.to(d) for d in devices]
+        planes = [torch.where(k, p, q)
+                  for k, p, q in zip(keep, planes, new_planes)]
+        tag = [torch.where(k, p, q) for k, p, q in zip(keep, tag, new_tag)]
         rem = torch.where(done, rem, new_rem)
         done = done | (count == 0) | (new_rem <= 0)
+    planes, tag = (planes[0], tag[0]) if sg is None \
+        else mk_ops.gather_lanes(planes, tag, dev)
     nl = state.tag.shape[0]
     ys = (_stack(ys[0], (dg.n_ops,), torch.int32, dev),
           _stack(ys[1], (nl,), torch.int32, dev),
@@ -372,13 +400,15 @@ def min_extract_rounds_mk(eng: APEngine, val: Field, active: Field,
                           cand: Field, rounds: int, remaining: int,
                           readout: bool = False) -> MinExtractTrace:
     """Megakernel counterpart of :func:`min_extract_rounds`: each round
-    is ONE op-group launch, returning the identical
-    :class:`MinExtractTrace` so the replay layer is shared."""
+    is ONE op-group launch (sharded over lanes when the engine has
+    ``n_shards``), returning the identical :class:`MinExtractTrace` so
+    the replay layer is shared."""
     copy_sched = isa.copy(cand, active)
     group = _min_extract_group(copy_sched, val, active, cand, readout)
     obs.count("kernels/launch/ap_megakernel/min_extract_rounds")
     dg = mk_ops.device_group(group, eng.device)
-    state, ys = _mk_rounds(eng.state(), dg, remaining, rounds, readout)
+    sg = None if eng.mesh is None else mk_ops.sharded_group(group, eng.mesh)
+    state, ys = _mk_rounds(eng.state(), dg, remaining, rounds, readout, sg)
     matched, tie_tag, masked, ctr = _to_host(*ys, state.counters)
     eng.adopt(state)
     Pc = copy_sched.n_passes
@@ -524,7 +554,7 @@ def count_probes_mk(eng: APEngine, cols, keys) -> np.ndarray:
     group = mk_ref.OpGroup.probes(cols_p, keys_p)
     enabled = np.arange(cols_p.shape[0]) < n_probes
     eng.planes, eng.tag, matched = mk_ops.run_group(
-        eng.planes, eng.tag, group, enabled)
+        eng.planes, eng.tag, group, enabled, mesh=eng.mesh)
     counts = matched.cpu().numpy()[:n_probes].astype(np.int64)
 
     cf = counts.astype(np.float64)

@@ -37,7 +37,7 @@ def ap_histogram(x: np.ndarray, n_bins: int, m: int = 8,
     all bin probes as one device program (one host transfer);
     ``mode="eager"`` is the per-bin-sync oracle; ``mode="megakernel"``
     runs the probe batch as one fused op-group launch with bulk
-    accounting.  ``n_shards`` (lane sharding) is not ported and raises.
+    accounting (``n_shards`` shards the bitplanes over lanes).
     """
     if mode not in ("device", "eager", "megakernel"):
         raise ValueError(f"unknown mode {mode!r}")

@@ -46,8 +46,7 @@ def ap_knn(db: np.ndarray, q: np.ndarray, k: int, m: int = 4,
     ``mode="device"`` runs the k min-extraction rounds (including the
     responder readout) as one device program; ``mode="eager"`` is the
     per-cycle oracle; ``mode="megakernel"`` fuses each round into one
-    op-group launch with bulk accounting.  ``n_shards`` (lane sharding)
-    is not ported and raises.
+    op-group launch with bulk accounting (``n_shards`` shards lanes).
     """
     if mode not in ("device", "eager", "megakernel"):
         raise ValueError(f"unknown mode {mode!r}")

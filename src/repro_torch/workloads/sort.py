@@ -68,8 +68,8 @@ def ap_sort(x: np.ndarray, m: int = 8, backend: str = "jnp",
     Returns (sorted array, engine counters).  Exact.
     ``mode="megakernel"`` runs each extraction round as one fused
     op-group launch plus a single bulk accounting fold (bit-identical
-    to both other modes).  ``n_shards`` (lane sharding) is not ported
-    and raises.
+    to both other modes); ``n_shards`` (megakernel only) shards the
+    bitplanes over that many local devices' lanes.
     """
     if mode not in ("device", "eager", "megakernel"):
         raise ValueError(f"unknown mode {mode!r}")

@@ -43,8 +43,7 @@ def ap_spmv(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     ``mode="device"`` runs the whole per-(row, bit) tag-count reduction
     as one device program; ``mode="eager"`` is the per-probe oracle;
     ``mode="megakernel"`` fuses the probe batch into one op-group
-    launch with bulk accounting.  ``n_shards`` (lane sharding) is not
-    ported and raises.
+    launch with bulk accounting (``n_shards`` shards the lanes).
     """
     if mode not in ("device", "eager", "megakernel"):
         raise ValueError(f"unknown mode {mode!r}")

@@ -704,6 +704,150 @@ def test_engine_megakernel_run_card_equals_host(cuda):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.fixture
+def one_card_shards(cuda, monkeypatch):
+    """Four "local devices", each the one card: n shards run on one card
+    (the mechanism, not several cards)."""
+    from repro_torch.parallel import sharding
+    monkeypatch.setattr(sharding, "local_devices",
+                        lambda device="cuda": (torch.device("cuda", 0),) * 4)
+    return sharding
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+@pytest.mark.parametrize("n_lanes", [32, 1024, 32768])
+def test_sharded_sort_round_equals_unsharded_kernel(one_card_shards,
+                                                    n_lanes, n_shards):
+    """A sort round lane-sharded on (cuda:0,)*n: its segments launch the
+    kernel on every shard, and planes, tag and the summed counts equal
+    the unsharded kernel's and the plain version's, with no plain
+    version called on the card."""
+    from repro_torch.workloads import _device
+    val, active, cand = Field(0, 8), Field(8, 1), Field(9, 1)
+    group = _device._min_extract_group(isa.copy(cand, active), val, active,
+                                       cand, readout=False)
+    rng = np.random.default_rng(n_lanes + n_shards)
+    host = interop.planes_from_reference(
+        rng.integers(0, 2 ** 32, (10, n_lanes),
+                     dtype=np.uint64).astype(np.uint32), "cpu")
+    tag = torch.zeros(n_lanes, dtype=torch.int32)
+    planes = host.cuda()
+    want = mk_ops.run_group(planes, tag.cuda(), group)
+    mesh = one_card_shards.ap_mesh(n_shards, device="cuda")
+    sg = mk_ops.sharded_group(group, mesh)
+    before = mk_ops.run_group.launches
+    real_plain = mk_ref.group_scan_plain
+
+    def no_plain(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    mk_ref.group_scan_plain = no_plain
+    try:
+        got = mk_ops.run_group(planes, tag.cuda(), sg, mesh=mesh)
+    finally:
+        mk_ref.group_scan_plain = real_plain
+    assert mk_ops.run_group.launches - before == len(sg.segments) * n_shards
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    plain = mk_ref.group_scan_plain(host, tag, group.tables())
+    for a, b in zip(got, plain[:3]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("w", ["sort", "knn", "hist", "spmv"])
+def test_sharded_suite_workloads_equal_unsharded_on_the_card(
+        one_card_shards, monkeypatch, w):
+    """The suite's megakernel-mode traces with every group lane-sharded
+    over 2 and 4 shards on the card: counters and trace events equal the
+    unsharded card run's."""
+    import functools
+    from repro_torch.workloads import histogram, knn, registry, sort, spmv
+    mod, name = {"sort": (sort, "ap_sort"), "knn": (knn, "ap_knn"),
+                 "hist": (histogram, "ap_histogram"),
+                 "spmv": (spmv, "ap_spmv")}[w]
+    want = registry.trace_counters(w, 256, mode="megakernel", device="cuda")
+    real = getattr(mod, name)
+    for n in (2, 4):
+        monkeypatch.setattr(mod, name, functools.partial(real, n_shards=n))
+        got = registry.trace_counters(w, 256, mode="megakernel",
+                                      device="cuda")
+        assert set(got) == set(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(v),
+                                          err_msg=f"{n} {k}")
+
+
+@pytest.mark.parametrize("solver,workloads", [
+    ("pcg", ("hist", "sort", "dmm")), ("mg", ("hist", "sort", "dmm")),
+    ("pcg", ("hist", "sort")), ("mg", ("hist", "sort"))])
+def test_sharded_replay_equals_unsharded_on_the_card(one_card_shards,
+                                                     solver, workloads):
+    """A case batch of 6 (or 4: one case a shard on 4 shards) on 1, 3 and
+    4 shards of the one card: every report array bit for bit the
+    unsharded batch's (no per-case sum, factor or coarse solve depends
+    on the batch size: ``thermal.case_sum``,
+    ``multigrid.coarse_factorization``)."""
+    from repro_torch.sweep import SweepSpec, run_sweep
+    spec = SweepSpec(workloads=workloads, sizes=(4096,), n_dram=(2,),
+                     machines=("ap", "simd"), grid_n=8, n_intervals=4,
+                     steps_per_interval=1, n_cg=15, solver=solver)
+    ref = run_sweep(spec, use_cache=False, device="cuda")
+    for n in (1, 3, 4):
+        got = run_sweep(spec, use_cache=False, n_shards=n, device="cuda")
+        for a, b in zip(ref.records, got.records):
+            for f in ("peak_C", "min_C", "residual_C", "throttle",
+                      "refresh_W", "leak_W", "dyn_W"):
+                np.testing.assert_array_equal(
+                    getattr(a.report, f).view(np.uint32),
+                    getattr(b.report, f).view(np.uint32),
+                    err_msg=f"{n} {a.label} {f}")
+
+
+@pytest.mark.parametrize("shape", [(7, 36, 36), (5, 48, 48), (6, 12, 12),
+                                   (17, 36, 36)])
+def test_case_sum_is_batch_invariant_on_the_card(cuda, shape):
+    """A case's ``case_sum`` is the same bits in a batch of 1-8 as in a
+    batch of 16 (a CUDA sum over a case's whole volume is not)."""
+    from repro_torch.core import thermal
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(16,) + shape).astype(np.float32)).to(cuda)
+    full = thermal.case_sum(x)
+    for B in range(1, 9):
+        got = torch.cat([thermal.case_sum(x[i:i + B])
+                         for i in range(0, 16 - 16 % B, B)])
+        assert torch.equal(got, full[:got.shape[0]]), B
+    assert torch.equal(thermal.case_sum(x, keepdim=True).flatten(), full)
+
+
+def test_coarse_solve_is_batch_invariant_on_the_card(cuda):
+    """The mg replay's coarsest factor and solve give a case the same bits
+    in a batch of 1-5 as in a batch of 6."""
+    import math
+    from repro_torch.core import cosim, multigrid, thermal
+    from repro_torch.core.floorplan import MM
+    grids = [thermal.Grid(die_w=math.sqrt(a) * MM, ny=24, nx=24, margin=6)
+             for w in ("dmm", "fft", "bs")
+             for dp in (cosim.comparable_design_point(w),)
+             for a in (dp.ap_area_mm2, dp.simd_area_mm2)]
+    Fs = [g.fields(cuda) for g in grids]
+    F = {k: torch.stack([f[k] for f in Fs]) for k in Fs[0]}
+    cap = torch.stack([g.capacity_field(cuda) for g in grids])
+    b = torch.from_numpy(np.random.default_rng(2).normal(
+        size=tuple(cap.shape)).astype(np.float32)).to(cuda)
+
+    def coarse_of(sl):
+        levels = multigrid.build_levels({k: v[sl] for k, v in F.items()},
+                                        cap[sl] / 0.0025)
+        rhs = torch.zeros_like(levels[-1][0]["g_pkg"]) + b[sl, :, :1, :1]
+        return multigrid.coarse_solve_fn(levels)(rhs)
+
+    full = coarse_of(slice(0, 6))
+    for B in range(1, 6):
+        got = torch.cat([coarse_of(slice(i, i + B))
+                         for i in range(0, 6 - 6 % B, B)])
+        assert torch.equal(got, full[:got.shape[0]]), B
+
+
 #: the flash kernel sums in another order than the plain version's
 #: materialised softmax: 1e-4 absolute at float32 (outputs of magnitude
 #: below 1); for bfloat16 inputs both round that float32 result to

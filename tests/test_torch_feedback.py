@@ -217,8 +217,9 @@ def test_ramp_policy_matches_reference():
 
 def test_unported_options_raise():
     # every controller of the policy family is ported (the base class is
-    # the explicit "no DTM" policy), and so are sensor faults and dt_scale;
-    # only n_shards is not
+    # the explicit "no DTM" policy), and so are sensor faults, dt_scale
+    # and n_shards: two shards on the host's one CPU device are out of
+    # range, as more shards than devices are in the reference
     from repro_torch.faults import SensorFaultSpec
     assert tfb.FeedbackParams(policy=tpolicy.Policy()).resolved_policy() \
         == tpolicy.Policy()
@@ -226,7 +227,7 @@ def test_unported_options_raise():
         == SensorFaultSpec(n_stuck=1)
     with pytest.raises(ValueError):
         tfb.FeedbackParams(dtm_floor=0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="out of range"):
         tfb.run_stack_cosim(device="cpu", n_shards=2)
     with pytest.raises(ValueError, match="unknown solver"):
         tfb.run_stack_cosim(device="cpu", solver="mgcg")

@@ -222,6 +222,8 @@ def test_engine_backend_choices():
     assert tengine.APEngine.BACKENDS == jengine.APEngine.BACKENDS
     with pytest.raises(ValueError, match="backend"):
         tengine.APEngine(32, 4, backend="ap_match", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # lane sharding is ported: 32 words are one lane, which two shards
+    # cannot split (the reference's message)
+    with pytest.raises(ValueError, match="divisible"):
         tengine.APEngine(32, 4, backend="megakernel", n_shards=2,
                          device="cpu")

@@ -248,9 +248,13 @@ def test_steady_solve_counters_match_reference():
     observations) and ``mg/hierarchies_built``: the same names and counts
     as the reference's for the same steady solves.  The reference counts
     a hierarchy once a trace of its jitted driver, the port once a
-    build; a steady mg solve builds one in both."""
+    build; a steady mg solve builds one in both.  The reference's jit
+    caches are cleared first, so its drivers trace inside this test
+    whatever ran before it in the process."""
+    import jax
     from repro.core import thermal as jth
     from repro_torch.core import thermal as tth
+    jax.clear_caches()
     n = 16
     for pkg, kw, m in ((jth, {}, jobs), (tth, {"device": "cpu"}, obs)):
         grid = pkg.Grid(die_w=3e-3, ny=n, nx=n, margin=4)

@@ -293,7 +293,9 @@ def test_unported_options_raise(w):
                 np.array([1, 2], np.uint64), 3, m=3, **kw),
             "spmv": lambda **kw: tspmv.ap_spmv(
                 [0, 1], [1, 0], [2, 3], [1, 1], 2, m=3, **kw)}[w]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # lane sharding is ported: 32 words are one lane, which two shards
+    # cannot split (the reference's message)
+    with pytest.raises(ValueError, match="divisible"):
         call(mode="megakernel", n_shards=2, device="cpu")
     with pytest.raises(ValueError, match="mode"):
         call(mode="pallas", device="cpu")

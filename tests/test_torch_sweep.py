@@ -299,8 +299,12 @@ def test_runtime_error_propagates(tmp_path, monkeypatch, exc):
 
 def test_unported_and_card_only(tmp_path):
     spec = SweepSpec(**_QUICK)
-    with pytest.raises(NotImplementedError, match="item 2.5"):
-        run_sweep(spec, cache_dir=tmp_path, n_shards=2, device="cpu")
+    # n_shards is ported: two shards on the host's one CPU device are out
+    # of range, a ValueError that turns each group FAILED, as in the
+    # reference, and is never cached
+    res = run_sweep(spec, cache_dir=tmp_path, n_shards=2, device="cpu")
+    assert res.n_failed == len(res.records) > 0
+    assert not sweep_cache.path_for(spec, tmp_path, device="cpu").exists()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             run_sweep(spec, cache_dir=tmp_path)

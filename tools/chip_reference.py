@@ -1,4 +1,4 @@
-"""JAX reference values for ``chip_smoke.py``'s phases 22-25.
+"""JAX reference values for ``chip_smoke.py``'s phases 22-27.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_reference.py
 
@@ -27,9 +27,20 @@ port's chip run is held against this file.
 - ``deep`` (phase 25): steady ``mg`` and ``mgcg`` on ``dram_on_logic(12)``
   and ``(16)`` at 256^2 (phase 9's case), and ``run_sweep`` of
   ``bench_sweep.py``'s quick spec on 12 DRAM dies with ``solver="mg"``.
+- ``shard`` (phase 26): ``tests/test_faults.py``'s device-count
+  invariance case — sort/ap of 2^20 on 2 DRAM dies under ``PerDiePolicy``
+  with the seeded ``SensorFaultSpec`` — replayed unsharded at
+  ``grid_n=8`` (8 intervals) and at ``grid_n=24`` (48 intervals):
+  ``peak_C``, ``min_C`` and ``throttle`` (NaN where a dropped-out reading
+  reaches the policy).
+- ``apfloat`` (phase 27): ``fp_mul`` and ``fp_add`` at N = 64 and 1024
+  on ``bench_cycles.py``'s inputs (normal draws seeded by N): the
+  cycles, every counter with the float64 energy, and SHA-256 digests of
+  the result bits and of the trace arrays.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import sys
@@ -39,8 +50,9 @@ from pathlib import Path
 import numpy as np
 
 from repro import obs
-from repro.core import cosim, thermal
+from repro.core import apfloat, cosim, thermal
 from repro.core import models as M
+from repro.core.engine import APEngine
 from repro.core.floorplan import MM, APFloorplan
 from repro.faults import (GuardedPolicy, PowerFaultSpec, SensorFaultSpec,
                           inject_power_spikes, poison_solver)
@@ -239,9 +251,74 @@ def deep_phase() -> dict:
     return out
 
 
+#: tests/test_faults.py's faulted replay; its grid 24 twin at 48 intervals
+SHARD_FAULTS = dict(seed=3, n_sensors=3, noise_C=0.8, n_stuck=1,
+                    p_dropout=0.1)
+SHARD_CASES = {"grid8": dict(grid_n=8, n_intervals=8, interval_dt=0.02,
+                             margin=2, n_cg=15),
+               "grid24": dict(grid_n=24, n_intervals=48,
+                              interval_dt=0.25 / 48, margin=6, n_cg=15)}
+
+
+def shard_phase() -> dict:
+    spec = dram_on_logic(2, PAPER_STACK)
+    dp = cosim.comparable_design_point("sort", 2 ** 20)
+    fb = feedback.FeedbackParams(policy=PerDiePolicy(),
+                                 faults=SensorFaultSpec(**SHARD_FAULTS))
+    out = dict(faults=SHARD_FAULTS, cases={})
+    for key, c in SHARD_CASES.items():
+        trace = cosim.ap_workload_trace("sort", c["n_intervals"],
+                                        cosim.trace_elems(2 ** 20))
+        case = [("sort/ap", feedback.assemble_case(
+            dp, "sort", "ap", spec, PAPER_STACK, c["grid_n"], trace,
+            c["margin"]))]
+        rep = feedback.replay_cases(
+            case, spec, fb, c["grid_n"], c["interval_dt"],
+            steps_per_interval=1, n_cg=c["n_cg"],
+            margin=c["margin"])["sort/ap"]
+        out["cases"][key] = dict(params=c, peak_C=_arr(rep.peak_C),
+                                 min_C=_arr(rep.min_C),
+                                 throttle=_arr(rep.throttle))
+    return out
+
+
+def _digest(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+APFLOAT_BITS = 352
+
+
+def apfloat_run(op: str, n: int) -> dict:
+    """One ``bench_cycles.py``-style call: the engine's counters, cycles
+    of the op alone and digests of the result and trace arrays."""
+    eng = APEngine(n_words=n, n_bits=APFLOAT_BITS)
+    x, y, z = (apfloat.FpField.alloc(eng) for _ in range(3))
+    s = apfloat.FpScratch.alloc(eng)
+    rng = np.random.default_rng(n)
+    apfloat.load_fp32(eng, x, rng.normal(size=n).astype(np.float32))
+    apfloat.load_fp32(eng, y, rng.normal(size=n).astype(np.float32))
+    c0 = eng.cycles
+    getattr(apfloat, op)(eng, x, y, z, s)
+    out = apfloat.read_fp32(eng, z)
+    return dict(cycles=eng.cycles - c0, counters=eng.counters(),
+                result_sha256=_digest(out.view(np.uint32)),
+                trace_sha256=_digest(*eng.trace_events()))
+
+
+def apfloat_phase() -> dict:
+    return dict(n_bits=APFLOAT_BITS,
+                runs={f"{op}/{n}": apfloat_run(op, n)
+                      for op in ("fp_mul", "fp_add") for n in (64, 1024)})
+
+
 def main(argv) -> int:
     phases = dict(cosim=cosim_phase, coarsen=coarsen_phase,
-                  faults=faults_phase, deep=deep_phase)
+                  faults=faults_phase, deep=deep_phase, shard=shard_phase,
+                  apfloat=apfloat_phase)
     want = argv or list(phases)
     data = json.loads(OUT.read_text()) if OUT.exists() else {}
     for name in want:
