@@ -96,8 +96,11 @@ these phases, each printing one line with its result and seconds:
     ``forward`` at 5136 positions, whose last key tile is ragged; the
     reference check's 4608), then the prefill shape at B = 1, causal MHA
     [1, 4096, 32, 64], the reference test's ragged (Sq 50, Sk 70) and
-    decode (Sq 1, Sk 96) shapes, causal and not, and the prefill shape in
-    bfloat16 at B = 1 and B = 4; each timed with CUDA events beside its
+    decode (Sq 1, Sk 96) shapes, causal and not, the prefill shape in
+    bfloat16 at B = 1 and B = 4, and phase 28's shapes (zamba2's causal
+    [4, 2048, 32, 64]; whisper's non-causal encoder [4, 1500, 8, 64] and
+    cross attention, 224 queries against 1500 keys, and its causal
+    decoder [4, 224, 8, 64]); each timed with CUDA events beside its
     bound (for bfloat16 inputs 4·dh flops a visible (q, k) pair at the
     bf16 tensor-core rate; for float32 the kernel's 3xTF32, 12·dh flops a
     pair at the TF32 rate; or its bytes), with the float32 CUDA-core
@@ -168,9 +171,11 @@ these phases, each printing one line with its result and seconds:
     sweep with ``solver="mg"`` on 12 DRAM dies, every verdict JAX's;
 26. the sharded case batch (``n_shards``): ``run_sweep`` of phase 20's
     full spec with ``n_shards=1``, every record bit for bit phase 20's
-    unsharded records, then with 3 shards (16-case groups padded to 18)
-    and 4; ``run_stack_cosim`` of phase 5 with ``n_shards=1``, pcg and
-    mg, bit for bit phases 5's and 11's reports; ``tests/test_faults.py``'s
+    unsharded records, then its group on 2 DRAM dies
+    (``SHARD_SWEEP_GROUP``, 16 cases) with 3 shards (padded to 18) and
+    4, bit for bit phase 20's records of that group;
+    ``run_stack_cosim`` of phase 5 with ``n_shards=1``, pcg and mg, bit
+    for bit phases 5's and 11's reports; ``tests/test_faults.py``'s
     faulted sort replay (2 DRAM dies, ``PerDiePolicy``, the seeded
     ``SensorFaultSpec``) at grid 8 on 1, 3 and 4 shards and at grid 24 on
     1 and 4, bit for bit the unsharded replay and within ``PEAK_TOL_C``
@@ -188,12 +193,27 @@ these phases, each printing one line with its result and seconds:
     (``bench_cycles.py``'s inputs) bit for bit JAX's results, counters,
     energy and trace arrays, and at N = 2^20 within 2 and 4 ulp of NumPy
     float32 with exact zeros, ``fp_mul``'s cycles those at N = 1024 (the
-    paper's length independence), with seconds a call.
-Phases 22-27 read their parameters and the JAX reference's values from
+    paper's length independence), with seconds a call;
+28. the other model families at their published widths (``FAMILY_RUNS``):
+    deepseek-v2-lite-16b cut to 8 layers (1 dense + 7 MoE; MLA with
+    ``attn_chunk=512``; no capacity drops), falcon-mamba-7b (64 Mamba-1
+    layers), zamba2-1.2b (38 Mamba-2 layers, 6 shared-block
+    applications) and whisper-base (6 + 6 layers over 1500 seeded audio
+    frames), seeded f32 weights made on the card: ``serve_lm.generate``
+    of 4 prompts (2048 tokens; whisper 224) and 16 greedy steps, the
+    flash kernel launched 0, 0, 6 and 18 times by prefill, prefill +
+    decode of the first sequence within ``SERVE_FORWARD_TOL`` of
+    ``forward`` with the same argmax; prefill and decode tokens/s and
+    peak memory beside the card's name and power limit, and a profiled
+    prefill of the first sequence (device time, top kernels); then each at
+    ``tools/chip_reference.json``'s depth (2, 2, 7 layers; whisper
+    whole) against JAX as phase 19: every argmax, leading logits within
+    ``SERVE_LEAD_TOL``, sums of squares within ``SERVE_SUMSQ_RTOL``.
+Phases 22-28 read their parameters and the JAX reference's values from
 ``tools/chip_reference.json`` (``tools/chip_reference.py``); 22-25 rerun
 every kernel they launched on the inputs they gave it, as in 20.
 
-Phases 5, 9-12, 14-16 and 18-27 each set every kernel's launch counter
+Phases 5, 9-12, 14-16 and 18-28 each set every kernel's launch counter
 to 0 just before they drive their path and read the counters just after;
 a kernel of the path that was not launched fails the phase.  The model's
 entry points (``forward``, ``prefill``, ``decode_step``) and phase 17's
@@ -214,6 +234,7 @@ go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import subprocess
@@ -1548,7 +1569,11 @@ def suite_stack(results):
 #: phase 17's shapes: (B, Sq, Sk, Hq, Hkv, dh, causal, window, dtype, reps).
 #: The first three are those phases 18 and 19 launch the kernel at: the
 #: serve path's prefill (B = 4), ``forward`` on prompt + 16 tokens (a
-#: ragged last key tile) and the 2-layer reference check's prompt.
+#: ragged last key tile) and the 2-layer reference check's prompt.  The
+#: last four are phase 28's prefills: zamba2's shared block, whisper's
+#: encoder self-attention and cross attention (non-causal; Sq = 224
+#: decoder positions against Sk = 1500 frames) and decoder
+#: self-attention.
 FLASH_CASES = {
     "serve_prefill": (4, 5120, 5120, 32, 8, 120, True, 4096, "float32", 3),
     "forward": (1, 5136, 5136, 32, 8, 120, True, 4096, "float32", 3),
@@ -1563,6 +1588,10 @@ FLASH_CASES = {
     "prefill_bf16": (1, 5120, 5120, 32, 8, 120, True, 4096, "bfloat16", 5),
     "serve_prefill_bf16": (4, 5120, 5120, 32, 8, 120, True, 4096, "bfloat16",
                            3),
+    "zamba2_prefill": (4, 2048, 2048, 32, 32, 64, True, None, "float32", 5),
+    "whisper_encoder": (4, 1500, 1500, 8, 8, 64, False, None, "float32", 20),
+    "whisper_cross": (4, 224, 1500, 8, 8, 64, False, None, "float32", 20),
+    "whisper_decoder": (4, 224, 224, 8, 8, 64, True, None, "float32", 20),
 }
 
 
@@ -2663,9 +2692,19 @@ def _same_reports(a, b) -> bool:
 
 def _same_records(a, b) -> bool:
     """Two sweep results' records bit for bit."""
-    return [r.label for r in a.records] == [r.label for r in b.records] \
-        and all(_same_reports(x.report, y.report)
-                for x, y in zip(a.records, b.records))
+    return _same_record_lists(a.records, b.records)
+
+
+def _same_record_lists(a, b) -> bool:
+    return [r.label for r in a] == [r.label for r in b] \
+        and all(_same_reports(x.report, y.report) for x, y in zip(a, b))
+
+
+def _same_group_records(a, full, n_dram: int) -> bool:
+    """A one-group sweep's records bit for bit that group's records in
+    the sweep ``full``."""
+    return _same_record_lists(
+        a.records, [r for r in full.records if r.point.n_dram == n_dram])
 
 
 @phase("20 scenario sweep")
@@ -3324,6 +3363,12 @@ def deep_stacks(results):
 # phases 26-27: n_shards and the AP's FP32
 # ---------------------------------------------------------------------------
 
+#: the group of phase 20's full sweep (its DRAM-die count) that phase 26
+#: replays on 3 and 4 shards: one group of 16 cases, where a whole sweep
+#: of three would replay 48 cases n times one after another on one card
+SHARD_SWEEP_GROUP = 2
+
+
 class _OneCardShards:
     """``sharding.local_devices`` listing the one card four times while
     it is entered, so n shards run as n slices on one card."""
@@ -3449,6 +3494,7 @@ def sharded_paths(results):
                   f"the coarse solve depends on the batch size ({k})")
     out["batch_invariance"] = inv
     spec = _sweep_spec("sweep_full")
+    group = dataclasses.replace(spec, n_dram=(SHARD_SWEEP_GROUP,))
     cosim._ap_workload_trace.cache_clear()
     reset_launches()
     sweeps = {}
@@ -3456,17 +3502,22 @@ def sharded_paths(results):
         t0 = time.perf_counter()
         if n == 1:
             res = run_sweep(spec, use_cache=False, n_shards=1, device="cuda")
+            check(_same_records(res, KEPT["sweep_full"]), "the 1-shard full "
+                  "sweep is not bit for bit phase 20's unsharded records")
         else:
             with _OneCardShards():
-                res = run_sweep(spec, use_cache=False, n_shards=n,
+                res = run_sweep(group, use_cache=False, n_shards=n,
                                 device="cuda")
+            check(_same_group_records(res, KEPT["sweep_full"],
+                                      SHARD_SWEEP_GROUP),
+                  f"the {n}-shard sweep of the dram{SHARD_SWEEP_GROUP} group "
+                  "is not bit for bit phase 20's unsharded records")
         sweeps[n] = time.perf_counter() - t0
-        check(not res.n_failed, f"the {n}-shard full sweep has FAILED rows")
-        check(_same_records(res, KEPT["sweep_full"]), f"the {n}-shard full "
-              "sweep is not bit for bit phase 20's unsharded records")
-    say(f"  run_sweep(full spec, {len(res.records)} records): n_shards 1, "
-        f"3 (groups of 16 padded to 18), 4 bit for bit phase 20's "
-        f"unsharded records; " + ", ".join(
+        check(not res.n_failed, f"the {n}-shard sweep has FAILED rows")
+    say(f"  run_sweep(full spec, {len(KEPT['sweep_full'].records)} records) "
+        f"with n_shards 1, and its dram{SHARD_SWEEP_GROUP} group "
+        f"({len(res.records)} records) with 3 (16 cases padded to 18) and "
+        f"4 shards, bit for bit phase 20's unsharded records; " + ", ".join(
             f"{n} shard(s) {t:.2f} s" for n, t in sweeps.items()))
     stacks = {}
     for key, solver in (("main_path", "pcg"), ("mg_path", "mg")):
@@ -3720,6 +3771,187 @@ def lane_sharding(results):
     return {"lane_sharding_27": launches, "apfloat_27": fp_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the moe/MLA, ssm, hybrid and encdec model families
+# ---------------------------------------------------------------------------
+
+#: phase 28's runs: each config at its published width, ``depth`` layers
+#: (None: all), a batch of 4 prompts of ``prompt`` tokens and
+#: FAMILY_GEN greedy steps, with the ``PerfConfig`` fields in ``perf``;
+#: ``flash`` is the flash kernel's launches a prefill (zamba2: its shared
+#: block once a segment; whisper: 6 encoder, 6 decoder self- and 6 cross
+#: attentions; MLA and the SSMs launch none).  deepseek-v2-lite-16b is
+#: cut to 8 of its 27 layers (1 dense + 7 MoE; its full f32 weights would
+#: take about 63 GB), the one cut, and serves with no capacity drops
+#: (``capacity_factor`` ceil(E / top_k), so every token reaches its
+#: experts, as at inference), which also makes prefill + decode equal to
+#: ``forward``; ``attn_chunk=512`` runs MLA's chunked online softmax.
+FAMILY_RUNS = {
+    "deepseek-v2-lite-16b": dict(depth=8, prompt=2048, flash=0,
+                                 perf=dict(attn_chunk=512)),
+    "falcon-mamba-7b": dict(depth=None, prompt=2048, flash=0, perf={}),
+    "zamba2-1.2b": dict(depth=None, prompt=2048, flash=6, perf={}),
+    "whisper-base": dict(depth=None, prompt=224, flash=18, perf={}),
+}
+FAMILY_BATCH, FAMILY_GEN = 4, 16
+
+
+def _family_batch(cfg, tokens, rng_audio) -> dict:
+    """The batch's inputs beside the tokens: whisper's stub audio
+    embeddings, on the card."""
+    import torch
+    if cfg.family != "encdec":
+        return {}
+    audio = rng_audio((tokens.shape[0], cfg.enc_seq, cfg.d_model))
+    return {"audio_embeds": torch.as_tensor(audio).float().cuda()}
+
+
+def _family_serve(name: str, run: dict, card: str) -> dict:
+    """One family at full width: ``serve_lm.generate`` of 4 prompts and
+    16 greedy steps, then prefill + decode of the first sequence against
+    ``forward``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.serve_lm import generate
+    cfg = get_config(name)
+    if run["depth"]:
+        cfg = dataclasses.replace(cfg, n_layers=run["depth"])
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(-(-cfg.moe.n_routed
+                                              // cfg.moe.top_k))))
+    perf = M.PerfConfig(**run["perf"])
+    B, P, G = FAMILY_BATCH, run["prompt"], FAMILY_GEN
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (B, P), generator=rng)
+    extra = _family_batch(cfg, tokens, lambda shape: torch.randn(
+        shape, generator=rng))
+    first = {k: v[:1] for k, v in extra.items()}
+    generate(params, tokens[:1, :64], cfg, 1, device="cuda",
+             batch_extra=first, perf=perf)                        # warm-up
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = generate(params, tokens, cfg, G, device="cuda", batch_extra=extra,
+                   perf=perf)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention"] == run["flash"],
+          f"{name}: prefill launched the flash kernel "
+          f"{launches['flash_attention']} times, not {run['flash']}")
+    if run["flash"]:
+        check_launched(launches, ("flash_attention",), f"{name} prefill")
+    check(bool(torch.isfinite(out["logits"]).all()),
+          f"{name}: non-finite logits")
+
+    seq = torch.cat([tokens[:1].cuda(), out["tokens"][:1, :G]], 1)
+    reset_launches()
+    full, aux = M.forward(params, {"tokens": seq, **first}, cfg, perf=perf)
+    fwd_launches = read_launches()["flash_attention"]
+    errs = [float((out["logits"][i, 0] - full[0, P - 1 + i]).abs().max())
+            for i in range(G + 1)]
+    same = [int(out["logits"][i, 0].argmax())
+            == int(full[0, P - 1 + i].argmax()) for i in range(G + 1)]
+    check(max(errs) <= SERVE_FORWARD_TOL and all(same),
+          f"{name}: prefill + decode vs forward: max err {max(errs):.3g} "
+          f"(tol {SERVE_FORWARD_TOL}), argmax equal {same}")
+    check(fwd_launches == run["flash"], f"{name}: forward launched the "
+          f"flash kernel {fwd_launches} times, not {run['flash']}")
+    check((float(aux) > 0) == (cfg.family == "moe") and
+          bool(torch.isfinite(aux)), f"{name}: aux loss {float(aux)}")
+    prof = _profile_serve(lambda: SV.prefill(
+        params, {"tokens": tokens[:1].cuda(), **first}, cfg, perf=perf,
+        max_seq=P + G))
+    res = dict(
+        n_layers=cfg.n_layers, n_params=n_params, init_s=init_s, batch=B,
+        prompt=P, gen=G, perf=run["perf"], prefill_s=out["prefill_s"],
+        decode_s=out["decode_s"], prefill_tok_s=B * P / out["prefill_s"],
+        decode_tok_s=B * G / out["decode_s"], peak_bytes=peak,
+        launches=launches, forward_launches=fwd_launches,
+        forward_max_err=max(errs), aux=float(aux), card=card,
+        profile_prefill_b1=prof)
+    say(f"  {name}, {cfg.n_layers} layers, {n_params / 1e9:.3f} B f32 "
+        f"parameters (init {init_s:.2f} s): prefill {B}x{P} in "
+        f"{out['prefill_s']:.3f} s ({res['prefill_tok_s']:.0f} tok/s), {G} "
+        f"greedy steps in {out['decode_s']:.3f} s "
+        f"({res['decode_tok_s']:.1f} tok/s); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; {launches['flash_attention']} flash "
+        f"launches; prefill + decode vs forward on sequence 0 within "
+        f"{max(errs):.2e}, argmax equal ({card})")
+    say(f"    profiled prefill of sequence 0: wall {prof['wall_ms']:.1f} "
+        f"ms, device {prof['device_ms']:.1f} ms, flash "
+        f"{prof['flash_ms']:.2f} ms in {prof['flash_launches']} launches; "
+        "top kernels:")
+    for t in prof["top"]:
+        say(f"      {t['device_ms']:9.2f} ms {t['launches']:6d} launches "
+            f"{t['kernel'][:60]}")
+    del params, out, full
+    torch.cuda.empty_cache()
+    return res
+
+
+def _family_reference(name: str, ref: dict) -> dict:
+    """``tools/chip_reference.json``'s cut of the family against JAX:
+    weights ``interop.lm_params_from_seed(cfg, 0)``, a 1 x 64 prompt and
+    8 greedy steps, held as phase 19 holds the dense model."""
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.serve_lm import generate
+    run = ref["runs"][name]
+    cfg = dataclasses.replace(get_config(name), n_layers=run["n_layers"])
+    params = interop.lm_params_from_seed(cfg, ref["seed"], "cuda")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab,
+                                             (1, ref["prompt"]))
+    extra = _family_batch(cfg, toks, lambda shape: np.random.default_rng(
+        1).normal(size=shape).astype(np.float32))
+    out = generate(params, torch.from_numpy(toks), cfg, ref["gen"],
+                   device="cuda", batch_extra=extra)
+    worst_lead, worst_ss = 0.0, 0.0
+    for i, st in enumerate(run["steps"]):
+        lg = out["logits"][i, 0].double().cpu().numpy()
+        d_lead = float(np.abs(lg[:len(st["lead"])] - np.array(st["lead"]))
+                       .max())
+        d_ss = abs(float((lg ** 2).sum()) - st["sumsq"]) / st["sumsq"]
+        check(int(lg.argmax()) == st["argmax"], f"{name} step {i}: argmax "
+              f"{int(lg.argmax())}, JAX {st['argmax']}")
+        check(d_lead <= SERVE_LEAD_TOL and d_ss <= SERVE_SUMSQ_RTOL,
+              f"{name} step {i}: leading logits off by {d_lead:.3g}, sum "
+              f"of squares by {d_ss:.3g} relative")
+        worst_lead, worst_ss = max(worst_lead, d_lead), max(worst_ss, d_ss)
+    gap = min(st["gap"] for st in run["steps"])
+    say(f"  {name} at {cfg.n_layers} layers, prompt {ref['prompt']}, "
+        f"{ref['gen']} greedy steps: argmax as JAX at every step (smallest "
+        f"JAX top-2 gap {gap:.4f}), leading logits within {worst_lead:.2e} "
+        f"(tol {SERVE_LEAD_TOL}), sum of squares within {worst_ss:.2e} "
+        f"relative (tol {SERVE_SUMSQ_RTOL})")
+    del params, out
+    torch.cuda.empty_cache()
+    return dict(n_layers=cfg.n_layers, max_lead_err=worst_lead,
+                max_sumsq_rel_err=worst_ss, min_reference_gap=gap)
+
+
+@phase("28 model families")
+def model_families(results):
+    ref = _chip_reference()["families"]
+    out, launches = {}, {}
+    for name, run in FAMILY_RUNS.items():
+        t0 = time.perf_counter()
+        out[name] = _family_serve(name, run, results["card"])
+        launches[name] = out[name]["launches"]
+        out[name]["reference"] = _family_reference(name, ref)
+        out[name]["seconds"] = time.perf_counter() - t0
+    results["families"] = out
+    return launches
+
+
 def _kernel_row(name, source, replaces, launches, r, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, **{k: r[k] for k in (
@@ -3781,6 +4013,7 @@ def main() -> int:
     deep_launches = deep_stacks(results)
     shard_launches = sharded_paths(results)
     lane_launches = lane_sharding(results)
+    family_launches = model_families(results)
     new_paths = {"cosim_22": cosim_launches, "coarsened_replay_23":
                  coarsen_launches, "sensor_faults_24": fault_launches,
                  **{f"deep_25:{k}": v for k, v in deep_launches.items()},
@@ -3887,7 +4120,9 @@ def main() -> int:
                         "serve_prefill": serve_launches["flash_attention"],
                         "forward": results["serve_path"]["forward_launches"],
                         "reference_check_prefill":
-                            ref_launches["flash_attention"]}),
+                            ref_launches["flash_attention"],
+                        **{f"families_28:{k}": v["flash_attention"]
+                           for k, v in family_launches.items()}}),
     ]
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

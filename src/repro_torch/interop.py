@@ -14,7 +14,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import APState, PassSchedule, schedule_tensors
 from repro_torch.kernels.ap_megakernel.ref import OpGroup
-from repro_torch.models.model import not_ported, vocab_padded
+from repro_torch.models.model import vocab_padded
 from repro_torch.workloads._device import MinExtractTrace
 
 
@@ -122,10 +122,17 @@ def min_extract_trace_from_reference(tr):
             "masked", "device_counters")))
 
 
+#: the params keys whose leaves carry a leading layer axis in the
+#: reference's pytree (lists of per-layer dicts in the port's)
+STACKED_KEYS = ("layers", "dense_layers", "enc_layers")
+
+
 def lm_params_from_reference(params_np: dict, device="cuda") -> dict:
-    """The reference's dense-family params pytree, as NumPy arrays with
-    the leading layer axis of ``params["layers"]`` -> the port's params
-    on ``device`` (``params["layers"]`` a list of per-layer dicts)."""
+    """The reference's params pytree of any family, as NumPy arrays ->
+    the port's params on ``device``: each stacked stack
+    (``STACKED_KEYS``, a leading layer axis) becomes a list of per-layer
+    dicts; ``shared_block``, ``enc_norm`` and the rest carry over as
+    they are (a MoE layer's experts stay stacked [E, ...])."""
     dev = resolve_device(device)
 
     def conv(tree):
@@ -138,24 +145,47 @@ def lm_params_from_reference(params_np: dict, device="cuda") -> dict:
             return {k: layer(v, i) for k, v in tree.items()}
         return tree[i]
 
-    out = conv({k: v for k, v in params_np.items() if k != "layers"})
-    stacked = params_np["layers"]
-    n_layers = len(next(iter(next(iter(stacked.values())).values())))
-    out["layers"] = [conv(layer(stacked, i)) for i in range(n_layers)]
+    def n_layers(tree):
+        while isinstance(tree, dict):
+            tree = next(iter(tree.values()))
+        return len(tree)
+
+    out = conv({k: v for k, v in params_np.items() if k not in STACKED_KEYS})
+    for key in STACKED_KEYS:
+        if key in params_np:
+            stacked = params_np[key]
+            out[key] = [conv(layer(stacked, i))
+                        for i in range(n_layers(stacked))]
     return out
 
 
 def lm_params_seed_numpy(cfg: ArchConfig, seed: int) -> dict:
-    """Dense-family weights from ``np.random.default_rng(seed)`` at the
+    """Weights of any family from ``np.random.default_rng(seed)`` at the
     reference's init scales, in the reference's pytree layout (float32
-    NumPy arrays; stacked layers): embed 0.02, each dense ``d_in**-0.5``,
-    ``wo`` ``(H*dh)**-0.5``, biases 0, norm weights 1 and biases 0.
+    NumPy arrays; layers stacked [L, ...], a MoE layer's experts [L, E,
+    ...], ``shared_block`` and ``enc_norm`` unstacked).  Every matrix is
+    a standard normal times ``d_in**-0.5``, but the embedding (0.02),
+    each attention ``wo`` (``(H*dh)**-0.5``; MLA's ``(H*v_dim)**-0.5``)
+    and an SSM's ``conv_w`` (``(d_conv*d_inner)**-0.5``); biases 0, norm
+    weights 1; an SSM's ``dt_bias`` -4.6, ``D`` 1, Mamba-1's ``A_log``
+    ``log(1..N)`` and Mamba-2's 0, as the reference's ``init_params``.
 
-    The draws run in this order, each over all layers at once: embed,
-    lm_head, wq, wk, wv, wo, w_gate, w_up, w_down.
+    The normal draws run in this order, each over all layers of a stack
+    at once: embed, lm_head; then
+      dense:  wq, wk, wv, wo, w_gate, w_up, w_down;
+      moe:    for ``dense_layers`` then ``layers``: the MLA weights (wq_a,
+              wq_b with q-LoRA, else wq; wkv_a, wkv_b, wo), then the
+              dense layers' w_gate, w_up, w_down, or the MoE layers'
+              router, the experts' w_gate, w_up, w_down and the shared
+              experts' w_gate, w_up, w_down;
+      ssm:    in_proj_x, in_proj_z, conv_w, x_proj, dt_proj, out_proj;
+      hybrid: in_proj_x, in_proj_z, in_proj_bc, in_proj_dt, conv_w,
+              out_proj; then the shared block's wq, wk, wv, wo, w_gate,
+              w_up, w_down;
+      encdec: the encoder's wq, wk, wv, wo, w_up, w_down; then the
+              decoder's self-attention wq, wk, wv, wo, its cross
+              attention's, and its w_up, w_down.
     """
-    if cfg.family != "dense":
-        raise not_ported(cfg.family)
     rng = np.random.default_rng(seed)
 
     def normal(shape, scale):
@@ -163,30 +193,123 @@ def lm_params_seed_numpy(cfg: ArchConfig, seed: int) -> dict:
         a *= np.float32(scale)
         return a
 
-    L, d, dh, ff = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
-    hq, hkv, vp = cfg.n_heads * dh, cfg.n_kv_heads * dh, vocab_padded(cfg)
+    def full(shape, value):
+        return np.full(shape, value, np.float32)
 
-    def norm(*lead):
-        n = {"w": np.ones(lead + (d,), np.float32)}
+    d, dh, vp = cfg.d_model, cfg.head_dim, vocab_padded(cfg)
+    hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+
+    def norm(*lead, width=d):
+        n = {"w": full(lead + (width,), 1.0)}
         if cfg.norm_type == "layernorm":
-            n["b"] = np.zeros(lead + (d,), np.float32)
+            n["b"] = full(lead + (width,), 0.0)
         return n
 
-    p = {"embed": normal((vp, d), 0.02),
-         "lm_head": normal((d, vp), d ** -0.5),
+    def dense(lead, d_in, d_out, scale=None):
+        return normal(lead + (d_in, d_out), scale or d_in ** -0.5)
+
+    def attn(*lead):
+        a = {"wq": dense(lead, d, hq), "wk": dense(lead, d, hkv),
+             "wv": dense(lead, d, hkv), "wo": dense(lead, hq, d)}
+        if cfg.qkv_bias:
+            a.update(bq=full(lead + (hq,), 0.0), bk=full(lead + (hkv,), 0.0),
+                     bv=full(lead + (hkv,), 0.0))
+        return a
+
+    def swiglu(lead, d_ff):
+        return {"w_gate": dense(lead, d, d_ff), "w_up": dense(lead, d, d_ff),
+                "w_down": dense(lead, d_ff, d)}
+
+    def gelu(lead):
+        return {"w_up": dense(lead, d, cfg.d_ff),
+                "b_up": full(lead + (cfg.d_ff,), 0.0),
+                "w_down": dense(lead, cfg.d_ff, d),
+                "b_down": full(lead + (d,), 0.0)}
+
+    def mla(lead):
+        m = cfg.mla
+        H, qk = cfg.n_heads, m.qk_nope + m.qk_rope
+        a = {}
+        if m.q_lora:
+            a["wq_a"] = dense(lead, d, m.q_lora)
+            a["q_norm"] = full(lead + (m.q_lora,), 1.0)
+            a["wq_b"] = dense(lead, m.q_lora, H * qk)
+        else:
+            a["wq"] = dense(lead, d, H * qk)
+        a["wkv_a"] = dense(lead, d, m.kv_lora + m.qk_rope)
+        a["kv_norm"] = full(lead + (m.kv_lora,), 1.0)
+        a["wkv_b"] = dense(lead, m.kv_lora, H * (m.qk_nope + m.v_dim))
+        a["wo"] = dense(lead, H * m.v_dim, d)
+        return a
+
+    def moe(lead):
+        m = cfg.moe
+        ex = lead + (m.n_routed,)
+        p = {"router": dense(lead, d, m.n_routed),
+             "experts": {"w_gate": dense(ex, d, m.d_expert),
+                         "w_up": dense(ex, d, m.d_expert),
+                         "w_down": dense(ex, m.d_expert, d)}}
+        if m.n_shared:
+            p["shared"] = swiglu(lead, m.n_shared * m.d_expert)
+        return p
+
+    def ssm(lead):
+        s = cfg.ssm
+        din, N = s.expand * d, s.d_state
+        p = {"in_proj_x": dense(lead, d, din),
+             "in_proj_z": dense(lead, d, din)}
+        if s.version == 1:
+            r = s.dt_rank or -(-d // 16)
+            p["conv_w"] = dense(lead, s.d_conv, din, (s.d_conv * din) ** -0.5)
+            p["x_proj"] = dense(lead, din, r + 2 * N)
+            p["dt_proj"] = dense(lead, r, din)
+            p["out_proj"] = dense(lead, din, d)
+            p.update(conv_b=full(lead + (din,), 0.0),
+                     dt_bias=full(lead + (din,), -4.6),
+                     A_log=np.broadcast_to(np.log(np.arange(
+                         1, N + 1, dtype=np.float32)), lead + (din, N)).copy(),
+                     D=full(lead + (din,), 1.0))
+        else:
+            H = din // s.headdim
+            p["in_proj_bc"] = dense(lead, d, 2 * N)
+            p["in_proj_dt"] = dense(lead, d, H)
+            p["conv_w"] = dense(lead, s.d_conv, din, (s.d_conv * din) ** -0.5)
+            p["out_proj"] = dense(lead, din, d)
+            p.update(conv_b=full(lead + (din,), 0.0),
+                     dt_bias=full(lead + (H,), -4.6),
+                     A_log=full(lead + (H,), 0.0), D=full(lead + (H,), 1.0),
+                     norm_w=full(lead + (din,), 1.0))
+        return p
+
+    p = {"embed": normal((vp, d), 0.02), "lm_head": dense((), d, vp),
          "final_norm": norm()}
-    attn = {"wq": normal((L, d, hq), d ** -0.5),
-            "wk": normal((L, d, hkv), d ** -0.5),
-            "wv": normal((L, d, hkv), d ** -0.5),
-            "wo": normal((L, hq, d), hq ** -0.5)}
-    if cfg.qkv_bias:
-        attn.update(bq=np.zeros((L, hq), np.float32),
-                    bk=np.zeros((L, hkv), np.float32),
-                    bv=np.zeros((L, hkv), np.float32))
-    mlp = {"w_gate": normal((L, d, ff), d ** -0.5),
-           "w_up": normal((L, d, ff), d ** -0.5),
-           "w_down": normal((L, ff, d), ff ** -0.5)}
-    p["layers"] = {"attn": attn, "mlp": mlp, "ln1": norm(L), "ln2": norm(L)}
+    L = (cfg.n_layers,)
+    if cfg.family == "dense":
+        p["layers"] = {"attn": attn(*L), "mlp": swiglu(L, cfg.d_ff),
+                       "ln1": norm(*L), "ln2": norm(*L)}
+    elif cfg.family == "moe":
+        nd = cfg.moe.first_dense
+        Ld, Lm = (nd,), (cfg.n_layers - nd,)
+        p["dense_layers"] = {
+            "attn": mla(Ld), "mlp": swiglu(Ld, cfg.moe.d_ff_dense or 4 * d),
+            "ln1": norm(*Ld), "ln2": norm(*Ld)}
+        p["layers"] = {"attn": mla(Lm), "moe": moe(Lm), "ln1": norm(*Lm),
+                       "ln2": norm(*Lm)}
+    elif cfg.family in ("ssm", "hybrid"):
+        p["layers"] = {"ssm": ssm(L), "ln": norm(*L)}
+        if cfg.family == "hybrid":
+            p["shared_block"] = {"attn": attn(), "mlp": swiglu((), cfg.d_ff),
+                                 "ln1": norm(), "ln2": norm()}
+    elif cfg.family == "encdec":
+        E = (cfg.n_enc_layers,)
+        p["enc_layers"] = {"attn": attn(*E), "mlp": gelu(E), "ln1": norm(*E),
+                           "ln2": norm(*E)}
+        p["layers"] = {"self_attn": attn(*L), "cross_attn": attn(*L),
+                       "mlp": gelu(L), "ln1": norm(*L), "ln2": norm(*L),
+                       "ln3": norm(*L)}
+        p["enc_norm"] = norm()
+    else:
+        raise ValueError(cfg.family)
     return p
 
 

@@ -25,9 +25,9 @@ from repro_torch.models.layers import NOSHARD, Sharder, dense_init
 NEG = -1e30
 
 
-def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32
-              ) -> dict:
-    d = cfg.d_model
+def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+              d_model: int = 0) -> dict:
+    d = d_model or cfg.d_model
     dh = cfg.head_dim
     p = {
         "wq": dense_init(gen, d, cfg.n_heads * dh, dtype),
@@ -74,8 +74,12 @@ def _rope(x, positions, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 def attn_train(params, x, positions, cfg: ArchConfig, shd: Sharder = NOSHARD,
-               *, causal: bool = True, chunk: Optional[int] = None):
-    """Full-sequence attention; returns [B, S, d].  Forward only."""
+               *, causal: bool = True, chunk: Optional[int] = None,
+               d_model: int = 0):
+    """Full-sequence attention; returns [B, S, d].  Forward only.
+
+    ``d_model`` is the reference's, accepted for its signature: the
+    projections' shapes carry the width."""
     q, k, v = _project_qkv(params, x, cfg, shd)
     q = _rope(q, positions, cfg)
     k = _rope(k, positions, cfg)

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 
 
 # ---------------------------------------------------------------------------
-# Sharder: the dense path's sharding hooks, identities on one card
+# Sharder: the reference's sharding hooks, identities on one card
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +38,15 @@ class Sharder:
         return x
 
     def kv_cache(self, x):   # [batch, seq, kv_heads, head_dim]
+        return x
+
+    def latent_cache(self, x):  # MLA compressed cache [batch, seq, lora]
+        return x
+
+    def ssm_state(self, x):  # [batch, d_inner, state]
+        return x
+
+    def expert_buf(self, x):  # [groups, experts, capacity, d]
         return x
 
 

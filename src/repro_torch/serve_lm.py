@@ -3,10 +3,12 @@
   PYTHONPATH=src python -m repro_torch.serve_lm --batch 8 --prompt-len 64 \\
       --gen 32 --arch h2o-danube-3-4b [--device cpu]
 
-The port of ``examples/serve_lm.py``: the reduced config of the chosen arch,
+The port of ``examples/serve_lm.py``: the reduced config of the chosen arch
+(any of ``repro_torch.configs``: dense, moe, ssm, hybrid or encdec),
 random weights from a seeded ``torch.Generator``, prefill then greedy
-decode.  Reports prefill latency and decode tokens/s.  Runs on the card
-unless ``--device cpu`` is given.
+decode; whisper's stub audio embeddings and qwen2-vl's prefix embeddings
+are seeded normals.  Reports prefill latency and decode tokens/s.  Runs
+on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -29,11 +31,14 @@ def _sync(device: torch.device) -> None:
 
 @torch.no_grad()
 def generate(params: dict, tokens: torch.Tensor, cfg: ArchConfig, gen: int,
-             max_seq: int = 0, device="cuda", batch_extra: dict | None = None
-             ) -> dict:
+             max_seq: int = 0, device="cuda", batch_extra: dict | None = None,
+             perf: M.PerfConfig = M.PerfConfig()) -> dict:
     """Prefill ``tokens`` [B, P], then ``gen`` greedy decode steps.
 
-    Returns a dict: ``tokens`` [B, gen + 1] (the token prefill picks, then
+    ``batch_extra`` holds the batch's other inputs on the device
+    (``prefix_embeds``, whisper's ``audio_embeds``); ``perf`` goes to
+    prefill, and its ``moe_groups`` to each decode step.  Returns a dict:
+    ``tokens`` [B, gen + 1] (the token prefill picks, then
     one a step), ``logits`` [gen + 1, B, vocab_p] (the logits each token
     was picked from), ``caches``, and ``prefill_s``/``decode_s`` (host
     seconds, the card synchronised).
@@ -44,7 +49,8 @@ def generate(params: dict, tokens: torch.Tensor, cfg: ArchConfig, gen: int,
     batch = {"tokens": tokens.to(dev), **(batch_extra or {})}
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = SV.prefill(params, batch, cfg, max_seq=max_seq)
+    logits, caches = SV.prefill(params, batch, cfg, perf=perf,
+                                max_seq=max_seq)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -52,7 +58,8 @@ def generate(params: dict, tokens: torch.Tensor, cfg: ArchConfig, gen: int,
     outs, steps = [toks], [logits]
     t0 = time.perf_counter()
     for t in range(P, P + gen):
-        logits, caches = SV.decode_step(params, toks, caches, t, cfg)
+        logits, caches = SV.decode_step(params, toks, caches, t, cfg,
+                                        moe_groups=perf.moe_groups)
         toks = logits.argmax(-1)[:, None]
         outs.append(toks)
         steps.append(logits)
@@ -81,6 +88,9 @@ def main() -> None:
     if cfg.n_prefix_embeds:
         extra["prefix_embeds"] = torch.randn(
             (B, cfg.n_prefix_embeds, cfg.d_model), generator=rng).to(dev)
+    if cfg.family == "encdec":
+        extra["audio_embeds"] = torch.randn(
+            (B, cfg.enc_seq, cfg.d_model), generator=rng).to(dev)
 
     out = generate(params, tokens, cfg, G, device=dev, batch_extra=extra)
     print(f"{args.arch} (reduced): prefill {B}x{P} tokens in "

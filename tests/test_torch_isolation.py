@@ -89,3 +89,25 @@ def test_slice_two_entry_points_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="cuda"):
         feedback.run_stack_cosim(workloads=("dmm",), n_dram=1, grid_n=4,
                                  n_intervals=2, solver="mg")
+
+
+@pytest.mark.parametrize("name", ("deepseek-v2-lite-16b", "falcon-mamba-7b",
+                                  "zamba2-1.2b", "whisper-base"))
+def test_model_family_entry_points_raise_without_a_card(no_card, name):
+    """Each model family's seeded weights and ``generate`` default to the
+    card and raise without one; on the CPU they run."""
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.serve_lm import generate
+    cfg = get_config(name).reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        interop.lm_params_from_seed(cfg, 0)
+    params = interop.lm_params_from_seed(cfg, 0, "cpu")
+    extra = {}
+    if cfg.family == "encdec":
+        extra["audio_embeds"] = torch.zeros((1, cfg.enc_seq, cfg.d_model))
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(RuntimeError, match="cuda"):
+        generate(params, tokens, cfg, 2, batch_extra=extra)
+    assert generate(params, tokens, cfg, 2, device="cpu",
+                    batch_extra=extra)["tokens"].shape == (1, 3)

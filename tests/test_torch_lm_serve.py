@@ -227,16 +227,6 @@ def test_generate_matches_reference_greedy_loop():
             logits, caches = step(rp, toks, caches, jnp.int32(P + i))
 
 
-@pytest.mark.parametrize("name", ("deepseek-v2-lite-16b", "falcon-mamba-7b",
-                                  "zamba2-1.2b", "whisper-base"))
-def test_other_families_are_not_ported_yet(name):
-    cfg = tcfg.get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SV.init_caches(cfg, 1, 8)
-
-
 def test_generate_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")

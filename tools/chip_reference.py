@@ -1,4 +1,4 @@
-"""JAX reference values for ``chip_smoke.py``'s phases 22-27.
+"""JAX reference values for ``chip_smoke.py``'s phases 22-28.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_reference.py
 
@@ -40,6 +40,7 @@ port's chip run is held against this file.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import math
@@ -47,19 +48,25 @@ import sys
 import time
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from repro import obs
 from repro.core import apfloat, cosim, thermal
 from repro.core import models as M
 from repro.core.engine import APEngine
+from repro.configs import get_config
 from repro.core.floorplan import MM, APFloorplan
 from repro.faults import (GuardedPolicy, PowerFaultSpec, SensorFaultSpec,
                           inject_power_spikes, poison_solver)
 from repro.policy import PerDiePolicy
 from repro.stack import dram, feedback
 from repro.stack.spec import PAPER_STACK, dram_on_logic
+from repro.models import serve as RS
 from repro.sweep import SweepSpec, run_sweep
+from repro_torch import configs as tcfg
+from repro_torch import interop
 
 OUT = Path(__file__).with_suffix(".json")
 
@@ -315,10 +322,57 @@ def apfloat_phase() -> dict:
                       for op in ("fp_mul", "fp_add") for n in (64, 1024)})
 
 
+#: phase 28's configs and the depth each is cut to (the width is the
+#: published one); the prompt length and greedy steps
+FAMILY_DEPTHS = {"deepseek-v2-lite-16b": 2, "falcon-mamba-7b": 2,
+                 "zamba2-1.2b": 7, "whisper-base": 6}
+FAMILY_PROMPT, FAMILY_GEN = 64, 8
+
+
+def _jnp_in_place(tree: dict) -> dict:
+    """NumPy leaves -> jnp arrays, one leaf at a time, so the host holds
+    one copy of the weights and not two."""
+    for k, v in tree.items():
+        tree[k] = _jnp_in_place(v) if isinstance(v, dict) else jnp.asarray(v)
+    return tree
+
+
+def family_run(name: str) -> dict:
+    depth = FAMILY_DEPTHS[name]
+    cfg = dataclasses.replace(get_config(name), n_layers=depth)
+    params = _jnp_in_place(interop.lm_params_seed_numpy(
+        dataclasses.replace(tcfg.get_config(name), n_layers=depth), 0))
+    batch = {"tokens": jnp.asarray(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, FAMILY_PROMPT)))}
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = jnp.asarray(np.random.default_rng(1).normal(
+            size=(1, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    logits, caches = RS.prefill(params, batch, cfg,
+                                max_seq=FAMILY_PROMPT + FAMILY_GEN)
+    step = jax.jit(lambda p, t, c, pos: RS.decode_step(p, t, c, pos, cfg))
+    steps = []
+    for i in range(FAMILY_GEN + 1):
+        lg = np.asarray(logits[0], np.float64)
+        top2 = np.sort(lg)[-2:]
+        steps.append(dict(argmax=int(lg.argmax()), lead=lg[:6].tolist(),
+                          sumsq=float((lg ** 2).sum()),
+                          gap=float(top2[1] - top2[0])))
+        if i < FAMILY_GEN:
+            toks = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+            logits, caches = step(params, toks, caches,
+                                  jnp.int32(FAMILY_PROMPT + i))
+    return dict(n_layers=depth, steps=steps)
+
+
+def families_phase() -> dict:
+    return dict(prompt=FAMILY_PROMPT, gen=FAMILY_GEN, seed=0,
+                runs={name: family_run(name) for name in FAMILY_DEPTHS})
+
+
 def main(argv) -> int:
     phases = dict(cosim=cosim_phase, coarsen=coarsen_phase,
                   faults=faults_phase, deep=deep_phase, shard=shard_phase,
-                  apfloat=apfloat_phase)
+                  apfloat=apfloat_phase, families=families_phase)
     want = argv or list(phases)
     data = json.loads(OUT.read_text()) if OUT.exists() else {}
     for name in want:
