@@ -4,7 +4,11 @@
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit.  It builds the port's hand-written kernels from ``src/`` and runs
-these phases, each printing one line with its result and seconds:
+these phases, each printing one line with its result and seconds, in this
+order but for the last three: 27 and 28 run before 26, and phase 29's
+quick lane runs in four processes of its own, started before phase 26 so
+that its host-bound replays overlap phase 26's and the smoke scenario's
+(none of the three times a kernel):
 
 1. the card's name and power limit (``nvidia-smi``), then the kernel build;
 2. the thermal-stencil kernel against its plain PyTorch version on the
@@ -138,12 +142,15 @@ these phases, each printing one line with its result and seconds:
     stencil, the smoother, the AP kernel, the megakernel) run again on
     the inputs the sweeps gave it, at each of their shapes, bit for bit
     against its plain version (``SweepRecorder``);
-21. the policy sweep, ``bench_policy.py``'s quick and full grids over
-    every registered policy but "guarded": every verdict the reference's
-    and every maximum DRAM peak within ``PEAK_TOL_C``, each policy's
-    slowdown, peak and energy per work beside the reference's, and the
-    headline: ``sort/N1048576/dram2`` on the AP BLOCKED under ``ramp``
-    and OK under ``perdie``; its kernels checked at its shapes as in 20;
+21. the policy sweep, ``bench_policy.py``'s quick grid and its full
+    grid cut to its group on 2 DRAM dies (``POLICY_FULL_CUT``: 84 of its
+    168 cases, the knife edges among them; the full spec's content hash
+    is still the reference's) over every registered policy but "guarded":
+    every verdict the reference's and every maximum DRAM peak within
+    ``PEAK_TOL_C``, each policy's slowdown, peak and energy per work
+    beside the reference's, and the headline: ``sort/N1048576/dram2`` on
+    the AP BLOCKED under ``ramp`` and OK under ``perdie``; its kernels
+    checked at its shapes as in 20;
 22. the open-loop co-simulation, ``cosim.run_cosim(("dmm", "fft", "bs"),
     grid_n=32, n_intervals=64, t_end=0.25)`` (6 design points in one
     batch): every ``peak_C`` and ``min_C`` within ``PEAK_TOL_C`` of the
@@ -158,11 +165,14 @@ these phases, each printing one line with its result and seconds:
     ``PEAK_TOL_C`` of JAX's;
 24. ``benchmarks/bench_faults.py``'s grid (sort/ap and dmm/simd on 2 DRAM
     dies; none, stuck and dropout sensors x the naive per-die and the
-    guarded policy) at its own size (grid 8, 16 intervals) and at grid 24
-    with 48 intervals: every verdict and ``n_guard_rescued`` the
+    guarded policy) at its own size (grid 8, 16 intervals), and at grid
+    24 with 48 intervals the cells whose reference verdict differs from
+    grid 8's and those ``n_guard_rescued`` counts (the faulted sensors;
+    ``_fault_cells_kept``): every verdict and ``n_guard_rescued`` the
     reference's, peaks within ``PEAK_TOL_C`` (or, recorded, the converged
-    twin within ``FAULT_TWIN_TOL_C``); the ``poison_solver("mg")`` fallback
-    with the reference's ``thermal/fallback/*`` counts; the power spike;
+    twin within ``FAULT_TWIN_TOL_C``); the ``poison_solver("mg")``
+    fallback with the reference's ``thermal/fallback/*`` counts; the power
+    spike at both sizes;
 25. deep stacks: the smoother's streaming path (17, 21 and 32 layers) bit
     for bit at the mg replay's 36^2 level and the 384^2 steady grid, timed
     beside its bound, and its device time a launch at the 36^2 level by
@@ -196,24 +206,52 @@ these phases, each printing one line with its result and seconds:
     paper's length independence), with seconds a call;
 28. the other model families at their published widths (``FAMILY_RUNS``):
     deepseek-v2-lite-16b cut to 8 layers (1 dense + 7 MoE; MLA with
-    ``attn_chunk=512``; no capacity drops), falcon-mamba-7b (64 Mamba-1
-    layers), zamba2-1.2b (38 Mamba-2 layers, 6 shared-block
+    ``attn_chunk=512``; no capacity drops), falcon-mamba-7b cut to 16 of
+    its 64 Mamba-1 layers, zamba2-1.2b (38 Mamba-2 layers, 6 shared-block
     applications) and whisper-base (6 + 6 layers over 1500 seeded audio
-    frames), seeded f32 weights made on the card: ``serve_lm.generate``
-    of 4 prompts (2048 tokens; whisper 224) and 16 greedy steps, the
-    flash kernel launched 0, 0, 6 and 18 times by prefill, prefill +
+    frames), seeded f32 weights made on the card:
+    ``serve_lm.generate`` of 4 prompts (2048 tokens; whisper 224) and 16
+    greedy steps, the flash kernel launched 0, 0, 6 and 18 times by
+    prefill, prefill +
     decode of the first sequence within ``SERVE_FORWARD_TOL`` of
     ``forward`` with the same argmax; prefill and decode tokens/s and
     peak memory beside the card's name and power limit, and a profiled
     prefill of the first sequence (device time, top kernels); then each at
     ``tools/chip_reference.json``'s depth (2, 2, 7 layers; whisper
     whole) against JAX as phase 19: every argmax, leading logits within
-    ``SERVE_LEAD_TOL``, sums of squares within ``SERVE_SUMSQ_RTOL``.
-Phases 22-28 read their parameters and the JAX reference's values from
+    ``SERVE_LEAD_TOL``, sums of squares within ``SERVE_SUMSQ_RTOL``;
+29. the LLM-serving co-simulation, ``repro_torch.serving.
+    run_serving_cosim``: ``serving_cost`` of stablelm-1.6b and
+    deepseek-v2-lite-16b field for field the reference's; then
+    ``tests/test_serving.py``'s smoke scenario (120 s, grid 8) and
+    ``benchmarks/bench_serving.py``'s quick lane at its own size (a copy
+    of ``scenarios(quick=True)``: both configs x diurnal and bursty
+    traffic over 3600 s of 1 s intervals, 2 rounds, the AP and the SIMD
+    stack): the resolved rates, interval counts, coarse plans, counters
+    and each machine's first-round ``stack_power_frames`` bit for bit
+    the reference's; the AP never throttled, its p50/p99 within
+    ``SERVING_LATENCY_RTOL``, its maximum logic and DRAM peaks within
+    ``PEAK_TOL_C``, time above 85 °C 0 and OK; the SIMD BLOCKED, its
+    peaks and time above 85 °C held the same way and its DTM slowdown
+    within ``SERVING_DTM_RTOL``, or, where the DTM ramp parts them
+    (``SERVING_SIMD_EXCEPTIONS``, ROADMAP Queue 3 item 11), within
+    ``SERVING_EXCEPTION_BOUNDS``, and the smoke scenario's converged twin
+    (``n_cg=120``) within ``SERVING_TWIN_TOL_C`` of JAX's; the machines
+    replay as one batch, and the smoke scenario's AP alone gives its
+    report bit for bit; the bench's gates (``SERVING_GATES``); the
+    verdict table beside the reference's, each scenario's seconds,
+    replayed intervals and stencil launches (each counted in the process
+    that ran it) and the seconds of a coarse interval, and the quick
+    lane's wall time; then, with the card to this process alone, the
+    stencil bit for bit against its plain version on the first
+    ``SERVING_RECORDED_CALLS`` calls of the smoke scenario's first
+    replay, timed there, and the device-busy share of a 4-interval window
+    of the quick lane's first replay (``torch.profiler``).
+Phases 22-29 read their parameters and the JAX reference's values from
 ``tools/chip_reference.json`` (``tools/chip_reference.py``); 22-25 rerun
 every kernel they launched on the inputs they gave it, as in 20.
 
-Phases 5, 9-12, 14-16 and 18-28 each set every kernel's launch counter
+Phases 5, 9-12, 14-16 and 18-29 each set every kernel's launch counter
 to 0 just before they drive their path and read the counters just after;
 a kernel of the path that was not launched fails the phase.  The model's
 entry points (``forward``, ``prefill``, ``decode_step``) and phase 17's
@@ -2588,16 +2626,27 @@ def _knife_edge(key: str, label: str, rep, verdict: str) -> list:
     return faults
 
 
-def _against_reference(key: str, res) -> tuple[dict, list]:
+def _against_reference(key: str, res, cut: dict | None = None
+                       ) -> tuple[dict, list]:
     """Each record of ``res`` against the JAX reference's: finite arrays,
     the same verdict, the maximum DRAM peak within PEAK_TOL_C (or its
-    recorded exception, or the hold of a knife-edge record).  Returns
-    (rows by label, faults)."""
+    recorded exception, or the hold of a knife-edge record).  With
+    ``cut`` (``workloads`` and ``n_dram``), ``res`` is the spec cut to
+    those, held to the reference's records of them.  Returns (rows by
+    label, faults)."""
+    import dataclasses
     import numpy as np
     ref_hash, ref = _reference_sweep()[key]
-    check(res.spec.content_hash() == ref_hash,
-          f"{key}: spec hash {res.spec.content_hash()}, the reference's "
+    spec = res.spec if cut is None else _sweep_spec(key)
+    check(spec.content_hash() == ref_hash,
+          f"{key}: spec hash {spec.content_hash()}, the reference's "
           f"{ref_hash}")
+    if cut is not None:
+        check(res.spec == dataclasses.replace(spec, **cut),
+              f"{key}: not the spec cut to {cut}")
+        ref = {label: v for label, v in ref.items()
+               if label.split("/")[0] in res.spec.workloads
+               and int(label.split("/")[2][4:]) in res.spec.n_dram}
     check([r.label for r in res.records] == list(ref),
           f"{key}: records not in the reference's order")
     rows, faults = {}, []
@@ -2673,6 +2722,8 @@ def _converged_twin(key: str, spec, rec: SweepRecorder
                if k == key and label not in rows]
     check(not missing, f"{key}: excepted records not in its twin: "
           f"{missing}")
+    check(dataclasses.replace(_sweep_spec(key), **SWEEP_TWINS[key]) == twin,
+          f"{key}: its converged twin is not the reference's")
     say(f"    ({key}'s converged twin: {len(rows)} records in "
         f"{seconds:.2f} s)")
     return dict(seconds=seconds, records=rows), faults
@@ -2771,19 +2822,29 @@ def sweep_path(results):
 #: the headline of ``bench_policy.py``: ramp leaves this case BLOCKED and
 #: the DRAM-sensed per-die controller rescues it (phase 21)
 POLICY_HEADLINE = "sort/N1048576/dram2/closed/{}/ap"
+#: what phase 21 runs of the full policy grid (the run's time budget):
+#: its group on 2 DRAM dies, 84 of its 168 cases; the knife edges of
+#: ROADMAP Queue 3 item 8 and every record held by a converged twin are
+#: among them
+POLICY_FULL_CUT = {"n_dram": (2,)}
 
 
 @phase("21 policy sweep")
 def policy_sweep(results):
+    import dataclasses
     out, faults = {}, []
     rec = SweepRecorder()
     for key in ("policy_quick", "policy_full"):
-        res, sec, launches, groups = _run_sweep_path(
-            _sweep_spec(key), None, rec, use_cache=False)
+        spec, cut = _sweep_spec(key), None
+        if key == "policy_full":
+            cut = POLICY_FULL_CUT
+            spec = dataclasses.replace(spec, **cut)
+        res, sec, launches, groups = _run_sweep_path(spec, None, rec,
+                                                     use_cache=False)
         check_launched(launches, ("thermal_stencil", "ap_match"),
                        f"the {key} sweep")
         _say_groups(key, sec, groups, launches)
-        rows, f = _against_reference(key, res)
+        rows, f = _against_reference(key, res, cut)
         twin, f_twin = _converged_twin(key, res.spec, rec)
         faults += f + f_twin
         ref = _reference_sweep()[key][1]
@@ -3050,6 +3111,19 @@ def _fault_verdict(rep) -> str:
     return "OK" if rep.dram_time_above_limit_s == 0.0 else "BLOCKED"
 
 
+def _fault_cells_kept(ref: dict, size: str) -> set:
+    """The cells phase 24 replays at ``size``: all at the bench's own size
+    ("spec"); at grid 24 ("wide", the run's time budget) those whose
+    reference verdict differs from grid 8's and those ``n_guard_rescued``
+    counts (every faulted sensor under both policies)."""
+    cells = ref[size]["cells"]
+    if size == "spec":
+        return set(cells)
+    return {k for k, v in cells.items()
+            if v["verdict"] != ref["spec"]["cells"][k]["verdict"]
+            or k.split("/")[2] != "none"}
+
+
 @phase("24 sensor faults")
 def fault_path(results):
     import numpy as np
@@ -3077,10 +3151,13 @@ def fault_path(results):
         gn, n_int, n_cg = (r["params"][k] for k in ("grid_n", "n_intervals",
                                                     "n_cg"))
         margin, dt = gn // 4, 0.25 / n_int
+        kept = _fault_cells_kept(ref, size)
+        labels = [c for c in ("sort/ap", "dmm/simd")
+                  if any(k.startswith(f"{c}/") for k in kept)]
 
         def capture():
             cases = []
-            for wl, mc in (("sort", "ap"), ("dmm", "simd")):
+            for wl, mc in (label.split("/") for label in labels):
                 dp = cosim.comparable_design_point(wl, 2 ** 20)
                 trace = cosim.ap_workload_trace(
                     wl, n_int, cosim.trace_elems(2 ** 20), device="cuda") \
@@ -3095,15 +3172,21 @@ def fault_path(results):
                                                                  capture)
         cells, verdicts, t_grid = {}, {}, 0.0
         say(f"  {size}: grid {gn}, {n_int} intervals, n_cg {n_cg} "
-            f"(capture {cap_s:.2f} s)")
+            f"(capture {cap_s:.2f} s); {len(kept)} of {len(r['cells'])} "
+            "cells" + ("" if size == "spec" else ", those whose verdict "
+                       "differs from grid 8's or n_guard_rescued counts"))
         say("    cell                         verdict (JAX)      DRAM peak C"
             " (JAX)          slowdown (JAX)")
         for fname, fspec in faults.items():
             for pname, pol in policies.items():
                 fb = feedback.FeedbackParams(policy=pol, faults=fspec)
+                these = [c for c in cases
+                         if f"{c[0]}/{fname}/{pname}" in kept]
+                if not these:
+                    continue
                 reps, sec, launches_by[f"{size}/{fname}/{pname}"] = \
                     _recorded(rec, lambda: feedback.replay_cases(
-                        cases, spec, fb, gn, dt, steps_per_interval=1,
+                        these, spec, fb, gn, dt, steps_per_interval=1,
                         n_cg=n_cg, margin=margin, device="cuda"))
                 t_grid += sec
                 for label, rep in reps.items():
@@ -3141,7 +3224,7 @@ def fault_path(results):
                       if f != "none" and p == "naive" and v != "OK"
                       and verdicts[(label, f, "guarded")] == "OK")
         say(f"    n_guard_rescued {rescued} (JAX {r['n_guard_rescued']}); "
-            f"12 replays {t_grid:.2f} s")
+            f"{len(cells)} cells replayed in {t_grid:.2f} s")
         check(rescued >= 1 and rescued == r["n_guard_rescued"],
               f"{size}: n_guard_rescued {rescued}, the reference's "
               f"{r['n_guard_rescued']}")
@@ -3782,14 +3865,16 @@ def lane_sharding(results):
 #: block once a segment; whisper: 6 encoder, 6 decoder self- and 6 cross
 #: attentions; MLA and the SSMs launch none).  deepseek-v2-lite-16b is
 #: cut to 8 of its 27 layers (1 dense + 7 MoE; its full f32 weights would
-#: take about 63 GB), the one cut, and serves with no capacity drops
+#: take about 63 GB), falcon-mamba-7b to 16 of its 64 (the run's time
+#: budget: its chunk scan took 11.7 s a prefill whole), and deepseek
+#: serves with no capacity drops
 #: (``capacity_factor`` ceil(E / top_k), so every token reaches its
 #: experts, as at inference), which also makes prefill + decode equal to
 #: ``forward``; ``attn_chunk=512`` runs MLA's chunked online softmax.
 FAMILY_RUNS = {
     "deepseek-v2-lite-16b": dict(depth=8, prompt=2048, flash=0,
                                  perf=dict(attn_chunk=512)),
-    "falcon-mamba-7b": dict(depth=None, prompt=2048, flash=0, perf={}),
+    "falcon-mamba-7b": dict(depth=16, prompt=2048, flash=0, perf={}),
     "zamba2-1.2b": dict(depth=None, prompt=2048, flash=6, perf={}),
     "whisper-base": dict(depth=None, prompt=224, flash=18, perf={}),
 }
@@ -3952,6 +4037,574 @@ def model_families(results):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the LLM-serving co-simulation
+# ---------------------------------------------------------------------------
+
+#: phase 29's holds beside PEAK_TOL_C, which bounds each report's maximum
+#: logic and DRAM peaks, and an equal time above 85 °C: the AP's p50 and
+#: p99 latency, relative (its throttle is 1.0 throughout, as in JAX, so
+#: its queue is the reference's float64 arithmetic on the same inputs);
+#: the SIMD's DTM slowdown, relative (the ramp's duty is continuous in
+#: the float32 temperature)
+SERVING_LATENCY_RTOL = 1e-9
+SERVING_DTM_RTOL = 1e-6
+#: SIMD reports where the DTM ramp amplifies the 25-iteration CG's
+#: float32 differences past those holds (ROADMAP Queue 3, item 11): on
+#: the card the DRAM peak 0.102-0.120 °C from JAX's, the time above 85 °C
+#: 1 s off (the smoke scenario), the slowdown 4.3e-5 and the latencies
+#: 2.8e-4 relative off where one sampled duty parts.  Held, with the
+#: verdict, to these bounds, each just above the largest gap measured;
+#: the smoke scenario also by its converged twin (n_cg = 120, both
+#: machines) within SERVING_TWIN_TOL_C of JAX's twin, with its time above
+#: 85 °C and verdict.  The quick lane's twins are not run on the card:
+#: each would replay 768-1,024 intervals at 120 CG iterations, some 3-4
+#: minutes; tests/test_torch_serving.py holds the deepseek diurnal
+#: SIMD twin and the smoke twin on the CPU to JAX's within 1e-3 °C.
+SERVING_SIMD_EXCEPTIONS = ("smoke", "quick/deepseek-v2-lite-16b/diurnal",
+                           "quick/deepseek-v2-lite-16b/bursty")
+SERVING_EXCEPTION_BOUNDS = {"peak_C": 0.15, "time_above_s": 1.0,
+                            "dtm_rtol": 1e-4, "latency_rtol": 5e-4}
+SERVING_TWIN_TOL_C = PEAK_TOL_C
+#: ``benchmarks/bench_serving.py``'s gates on its quick lane
+#: (``benchmarks/baseline.json``), held on the card
+SERVING_GATES = {"min_coarsen_x": (">=", 5.0),
+                 "max_ap_throttle_residual": ("<=", 0.05),
+                 "max_error_bound_C": ("<=", 10.0),
+                 "n_ap_ok": ("==", 4), "n_simd_ok": ("==", 0)}
+#: thermal-stencil calls of the first serving replay whose inputs are
+#: kept for the kernel check: its first interval and a few of the next
+SERVING_RECORDED_CALLS = 200
+
+
+def _bench_serving_quick():
+    """A copy of ``benchmarks/bench_serving.py``'s ``scenarios(quick=
+    True)`` on the port (``benchmarks/`` imports the reference)."""
+    from repro_torch.serving import ServingScenario, TrafficSpec
+    return [ServingScenario(
+        config=config, traffic=TrafficSpec(shape=shape, horizon_s=3600.0),
+        load=0.7, grid_n=8, coarsen_tol=0.02, pad_quantum=64, n_rounds=2)
+        for config in ("stablelm-1.6b", "deepseek-v2-lite-16b")
+        for shape in ("diurnal", "bursty")]
+
+
+def _serving_scenario(p: dict, n_cg: int = 25):
+    """A ``ServingScenario`` from ``tools/chip_reference.json``'s
+    parameters."""
+    from repro_torch.serving import ServingScenario, TrafficSpec
+    kw = {k: v for k, v in p.items() if k not in ("shape", "horizon_s")}
+    return ServingScenario(traffic=TrafficSpec(shape=p["shape"],
+                                               horizon_s=p["horizon_s"]),
+                           n_cg=n_cg, **kw)
+
+
+def _sha256(*arrays) -> str:
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+class _ServingSpy:
+    """While entered: the SHA-256 digest of every ``stack_power_frames``
+    result (one a round and machine, in call order: each round's
+    machines in turn), the cases and intervals of every
+    ``closed_loop_batch`` (one a round: the machines as one batch) and
+    the arguments of the first; with
+    ``n_record``, the inputs of the first ``n_record`` thermal-stencil
+    calls of the closed loop (``stack.feedback``'s call site), after
+    which the recorder takes itself out, so the rest of the run calls
+    the kernel's wrapper as it does without the spy."""
+
+    def __init__(self, n_record: int = 0):
+        self.n_record = n_record
+        self.digests, self.replays, self.first_replay = [], [], None
+        self.stencil_calls = []
+
+    def __enter__(self):
+        import numpy as np
+        from repro_torch.stack import feedback
+        self._fb = feedback
+        self._orig = (feedback.stack_power_frames,
+                      feedback.closed_loop_batch, feedback.stencil_ops)
+        frames_fn, replay_fn, st_mod = self._orig
+
+        def frames(*a, **kw):
+            out = frames_fn(*a, **kw)
+            self.digests.append(_sha256(*(np.asarray(x, np.float32)
+                                          for x in out)))
+            return out
+
+        def replay(*a, **kw):
+            self.replays.append(tuple(a[0].shape[:2]))
+            if self.first_replay is None:
+                self.first_replay = (a, dict(kw))
+            return replay_fn(*a, **kw)
+
+        def stencil(T, F, *a, **kw):
+            if T.is_cuda and len(self.stencil_calls) < self.n_record:
+                self.stencil_calls.append((T.clone(), F))
+                if len(self.stencil_calls) == self.n_record:
+                    feedback.stencil_ops = st_mod
+            return st_mod.apply_operator_fields(T, F, *a, **kw)
+        feedback.stack_power_frames = frames
+        feedback.closed_loop_batch = replay
+        if self.n_record:
+            feedback.stencil_ops = _StandIn(st_mod,
+                                            apply_operator_fields=stencil)
+        return self
+
+    def __exit__(self, *exc):
+        (self._fb.stack_power_frames, self._fb.closed_loop_batch,
+         self._fb.stencil_ops) = self._orig
+        del self._fb, self._orig     # what is left pickles
+
+    @property
+    def intervals(self) -> int:
+        """Intervals replayed, a batch of the machines counting one."""
+        return sum(t for _, t in self.replays)
+
+
+def _serving_run(sc, n_record: int = 0, machines=("ap", "simd")):
+    """``run_serving_cosim(sc)`` on the card with obs on, every launch
+    counter 0 before it.  Returns (reports, seconds, launches, the spy,
+    the ``serving/*`` counters)."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.serving import run_serving_cosim
+    obs.enable(reset=True)
+    with _ServingSpy(n_record) as spy:
+        reset_launches()
+        t0 = time.perf_counter()
+        reps = run_serving_cosim(sc, machines, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    counters = {k: v for k, v in obs.snapshot()["counters"].items()
+                if k.startswith("serving/")}
+    obs.disable()
+    obs.reset()
+    check_launched(launches, ("thermal_stencil",), f"{sc.label}")
+    return reps, seconds, launches, spy, counters
+
+
+def _to_device(tree, device):
+    """``tree`` (tuples, lists and dicts) with every tensor on ``device``."""
+    import torch
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree
+
+
+def _worker_main(send, fn, args) -> None:
+    """A spawned process's body: ``fn(*args)``, or the traceback of its
+    failure, sent back through ``send`` by the plain pickler (the pipe's
+    own would pass a tensor's storage by a handle this process must
+    outlive)."""
+    import pickle
+    try:
+        out = (True, fn(*args))
+    except BaseException:
+        import traceback
+        out = (False, traceback.format_exc())
+    send.send_bytes(pickle.dumps(out))
+    send.close()
+
+
+class _Workers:
+    """``fn(*args)`` for each ``args`` of ``arg_list``, each in a spawned
+    process of its own, all started at once.  :meth:`results` waits for
+    them in order and stops them; a failure in any raises there.  The
+    processes are daemons, so they end with this one if it fails first."""
+
+    def __init__(self, fn, arg_list):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.t0 = time.perf_counter()
+        self.procs = []
+        for args in arg_list:
+            recv, send = ctx.Pipe(duplex=False)
+            proc = ctx.Process(target=_worker_main, args=(send, fn, args),
+                               daemon=True)
+            proc.start()
+            send.close()
+            self.procs.append((proc, recv))
+
+    def results(self) -> list:
+        import pickle
+        out = []
+        try:
+            for proc, recv in self.procs:
+                try:
+                    ok, value = pickle.loads(recv.recv_bytes())
+                except EOFError:
+                    proc.join()
+                    raise AssertionError(f"worker {proc.name} ended with "
+                                         f"code {proc.exitcode} before it "
+                                         "returned") from None
+                proc.join()
+                check(ok, f"worker {proc.name} failed:\n{value}")
+                out.append(value)
+        finally:
+            self.stop()
+        return out
+
+    def stop(self) -> None:
+        for proc, _ in self.procs:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+
+
+def _quick_lane_worker(i: int):
+    """Scenario ``i`` of the quick lane as :func:`_serving_run` runs it,
+    in a process of its own: (reports, seconds, launches, the spy,
+    counters, its end on ``time.perf_counter``'s clock, which on Linux
+    is CLOCK_MONOTONIC, one for every process), the spy's first
+    replay on the host (the first scenario's only; phase 29 profiles a
+    window of it)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    reps, sec, launches, spy, counters = _serving_run(
+        _bench_serving_quick()[i])
+    spy.first_replay = _to_device(spy.first_replay, "cpu") if i == 0 \
+        else None
+    return reps, sec, launches, spy, counters, time.perf_counter()
+
+
+def start_quick_lane() -> _Workers:
+    """Phase 29's quick lane started: each of its four scenarios in a
+    spawned process of its own on the card.  Its replays are host-bound
+    (some 9 % of the card busy, one CPU core each), so they run beside
+    each other and beside the main process's phase 26 and phase 29's
+    smoke scenario, whose checks hold no timing; phase 29 collects and
+    holds them."""
+    return _Workers(_quick_lane_worker,
+                    [(i,) for i in range(len(_bench_serving_quick()))])
+
+
+def _serving_report_row(r) -> dict:
+    """The summary ``tools/chip_reference.py`` keeps of a report."""
+    import numpy as np
+    return dict(
+        mean_qps=r.mean_qps, n_base=r.n_base, n_coarse=r.n_coarse,
+        durations_sha256=_sha256(np.asarray(r.durations_s, np.float64)),
+        p50_s=r.p50_s, p99_s=r.p99_s, dtm_slowdown=r.dtm_slowdown,
+        time_above=r.time_above(), verdict_ok=bool(r.verdict_ok),
+        logic_peak_C=float(r.stack.logic_peak_C.max()),
+        dram_peak_C=float(r.stack.dram_peak_C.max()),
+        throttle_min=float(r.stack.throttle.min()),
+        n_throttled=int((r.stack.throttle < 1.0).sum()),
+        max_picard_residual_C=float(r.stack.residual_C.max()),
+        error_bound_C=r.error_bound_C,
+        throttle_residual=r.throttle_residual,
+        coarsen_ratio=r.coarsen_ratio, n_requests=int(r.latency_s.size))
+
+
+def _serving_hold(key: str, reps, spy, counters, ref: dict) -> dict:
+    """One scenario's reports against the reference's: the host values
+    bit for bit; the AP's peaks within PEAK_TOL_C, its latencies within
+    SERVING_LATENCY_RTOL, time above 85 °C and verdict equal; the SIMD's
+    verdict equal, its peaks, time above 85 °C and DTM slowdown held as
+    the AP's are, or, for SERVING_SIMD_EXCEPTIONS, to
+    SERVING_EXCEPTION_BOUNDS.  Returns the rows by machine."""
+    import numpy as np
+    want_plan = ref["plan"]
+    rows = {}
+    for i, (m, r) in enumerate(reps.items()):
+        label = f"{key}/{m}"
+        want = ref["reports"][m]
+        got = _serving_report_row(r)
+        for k in ("mean_qps", "n_base", "n_coarse", "durations_sha256"):
+            check(got[k] == want[k], f"{label}: {k} {got[k]}, the "
+                  f"reference's {want[k]}")
+        check(spy.digests[i] == want["frames_round1_sha256"],
+              f"{label}: the first round's frames are not the "
+              "reference's bit for bit")
+        plan = [int(v) for v in np.round(r.durations_s
+                                         / r.scenario.traffic.interval_s)]
+        check(plan == want_plan["reps"], f"{label}: the coarse plan is "
+              "not the reference's")
+        check(got["verdict_ok"] == want["verdict_ok"], f"{label}: verdict "
+              f"{got['verdict_ok']}, the reference's {want['verdict_ok']}")
+        d = {k: got[k] - want[k] for k in (
+            "logic_peak_C", "dram_peak_C", "dtm_slowdown", "time_above",
+            "p50_s", "p99_s")}
+        peak = max(abs(d["logic_peak_C"]), abs(d["dram_peak_C"]))
+        lat = max(abs(d[k]) / want[k] for k in ("p50_s", "p99_s"))
+        dtm = abs(d["dtm_slowdown"]) / want["dtm_slowdown"]
+        what = (f"{label}: peaks {d['logic_peak_C']:+.4f}, "
+                f"{d['dram_peak_C']:+.4f} C, time above "
+                f"{d['time_above']:+.1f} s, DTM slowdown {dtm:.2e} and "
+                f"latency {lat:.2e} relative from the reference's")
+        exception = m == "simd" and key in SERVING_SIMD_EXCEPTIONS
+        if m == "ap":
+            check(got["throttle_min"] == want["throttle_min"] == 1.0,
+                  f"{label}: throttled (min {got['throttle_min']})")
+            check(peak <= PEAK_TOL_C and d["time_above"] == 0.0
+                  and lat <= SERVING_LATENCY_RTOL and dtm == 0.0, what)
+        elif exception:
+            b = SERVING_EXCEPTION_BOUNDS
+            check(peak <= b["peak_C"]
+                  and abs(d["time_above"]) <= b["time_above_s"]
+                  and dtm <= b["dtm_rtol"] and lat <= b["latency_rtol"],
+                  what + " (a recorded exception)")
+        else:
+            check(peak <= PEAK_TOL_C and d["time_above"] == 0.0
+                  and dtm <= SERVING_DTM_RTOL, what)
+        rows[m] = dict(got, delta=d, exception=exception)
+    want_counters = {
+        "serving/base_intervals": sum(v["n_base"] for v in
+                                      ref["reports"].values()),
+        "serving/coarse_intervals": sum(v["n_coarse"] for v in
+                                        ref["reports"].values()),
+        "serving/requests": sum(v["n_requests"] for v in
+                                ref["reports"].values())}
+    check(counters == want_counters, f"{key}: counters {counters}, "
+          f"the reference's {want_counters}")
+    return rows
+
+
+def _serving_twin(p: dict, twin_ref: dict) -> dict:
+    """The converged twin (n_cg = 120) of a scenario, both machines, held
+    to the reference's twin: peaks within SERVING_TWIN_TOL_C, time above
+    85 °C and verdict equal, the DTM slowdown within SERVING_DTM_RTOL."""
+    sc = _serving_scenario(p, _chip_reference()["serving"]["twin_n_cg"])
+    reps, sec, _, _, _ = _serving_run(sc)
+    out = dict(seconds=sec)
+    for m, r in reps.items():
+        got, want = _serving_report_row(r), twin_ref["reports"][m]
+        d_pk = max(abs(got[k] - want[k]) for k in ("logic_peak_C",
+                                                   "dram_peak_C"))
+        dtm = abs(got["dtm_slowdown"] - want["dtm_slowdown"]) \
+            / want["dtm_slowdown"]
+        check(d_pk <= SERVING_TWIN_TOL_C and dtm <= SERVING_DTM_RTOL
+              and got["time_above"] == want["time_above"]
+              and got["verdict_ok"] == want["verdict_ok"],
+              f"{sc.label}/{m} twin: peaks {d_pk:.4f} C, DTM slowdown "
+              f"{dtm:.2e} relative from the reference's twin, time above "
+              f"{got['time_above']} s (JAX {want['time_above']})")
+        out[m] = dict(got, max_abs_dpeak_C=d_pk, dtm_rel=dtm)
+    return out
+
+
+def _serving_window(spy, n_win: int = 4) -> dict:
+    """Wall time, device-busy share and top kernels of ``n_win`` intervals
+    of the spy's first serving replay, and the stencil's device time a
+    launch there (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from repro_torch.stack import feedback
+    a, kw = _to_device(spy.first_replay, "cuda")
+    kw = dict(kw, dt_scale=kw["dt_scale"][:n_win])
+
+    def window():
+        feedback.closed_loop_batch(a[0][:, :n_win], *a[1:], **kw)
+        torch.cuda.synchronize()
+    window()
+    t0 = time.perf_counter()
+    window()
+    wall_s = time.perf_counter() - t0
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        window()
+    avgs = [(e.key, _self_device_us(e), e.count)
+            for e in _device_events(prof)]
+    busy_us = sum(us for _, us, _ in avgs)
+    top = sorted(avgs, key=lambda e: -e[1])[:5]
+    st_us = _kernel_device_us(prof, "stencil_fields")
+    say(f"  serving replay window ({n_win} intervals of the two machines' "
+        f"batch, {tuple(a[0].shape[:1] + a[0].shape[2:])}): wall {wall_s * 1e3:.1f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms ({100 * busy_us / 1e6 / wall_s:.1f} %), "
+        f"{sum(n for _, _, n in avgs)} launches; the stencil "
+        f"{'not measured' if st_us is None else f'{st_us:.2f} us'} a launch")
+    for k, us, n in top:
+        say(f"    {us / 1e3:8.2f} ms  {n:6d} launches  {k[:70]}")
+    return dict(intervals=n_win, wall_s=wall_s, device_busy_s=busy_us / 1e6,
+                busy_share=busy_us / 1e6 / wall_s,
+                launches=sum(n for _, _, n in avgs),
+                stencil_device_us=st_us,
+                top=[dict(kernel=k[:80], device_s=us / 1e6, launches=n)
+                     for k, us, n in top])
+
+
+def _serving_stencil_check(spy) -> dict:
+    """The recorded stencil calls through the kernel and its plain
+    version, bit for bit; the first call's shape timed beside its plain
+    version, its bound and its device time a launch."""
+    import torch
+    from repro_torch.kernels.thermal_stencil import ops as st_ops
+    calls = spy.stencil_calls
+    check(len(calls) == SERVING_RECORDED_CALLS, f"{len(calls)} stencil "
+          f"calls recorded, not {SERVING_RECORDED_CALLS}")
+    err = 0.0
+    for T, F in calls:
+        got = st_ops.apply_operator_fields(T, F)
+        want = st_ops.apply_operator_fields_plain(T, F)
+        check(torch.equal(got, want), "the stencil differs from its plain "
+              f"version on the serving replay's input at {tuple(T.shape)}")
+        err = max(err, float((got - want).abs().max()))
+    T, F = calls[0]
+    cells = T.numel()
+    b_ms, b_by = bound_ms(36.0 * cells, 19.0 * cells)
+    run = lambda: st_ops.apply_operator_fields(T, F)
+    plain = lambda: st_ops.apply_operator_fields_plain(T, F)
+    out = dict(shape=list(T.shape), calls=len(calls), max_abs_err=err,
+               ms=cuda_ms(run, 200), plain_ms=cuda_ms(plain, 20),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    us = _profiled_us(run, 100, "stencil_fields")
+    out["device_ms"] = None if us is None else us / 1e3
+    say(f"  serving replay: the stencil bit-identical to its plain version "
+        f"on the first {len(calls)} calls of the first replay, "
+        f"{tuple(T.shape)}: kernel {out['ms'] * 1e3:.2f} us a call, device "
+        f"{'not measured' if us is None else f'{us:.2f} us'} a launch, "
+        f"plain {out['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
+        f"({b_by})")
+    return out
+
+
+def _say_serving(label: str, rows: dict, sec: float, spy, launches):
+    n_int = spy.intervals
+    say(f"  {label}: {sec:.2f} s, {len(spy.replays)} batched replays of "
+        f"{n_int} intervals in all ({sec / n_int * 1e3:.2f} ms a coarse "
+        f"interval of both machines), stencil launches "
+        f"{launches['thermal_stencil']}")
+    for m, r in rows.items():
+        d = r["delta"]
+        say(f"    {m:4s} {r['n_base']} -> {r['n_coarse']} intervals; peaks "
+            f"logic {r['logic_peak_C']:.4f} ({d['logic_peak_C']:+.4f}), "
+            f"DRAM {r['dram_peak_C']:.4f} ({d['dram_peak_C']:+.4f}) C; "
+            f"p50 {r['p50_s']:.4f} ({d['p50_s']:+.2e}), p99 "
+            f"{r['p99_s']:.4f} ({d['p99_s']:+.2e}) s; DTM x"
+            f"{r['dtm_slowdown']:.6f} ({d['dtm_slowdown']:+.2e}); above 85C "
+            f"{r['time_above']:.1f} s ({d['time_above']:+.1f}); "
+            f"{'OK' if r['verdict_ok'] else 'BLOCKED'}"
+            + ("; a recorded exception (Queue 3 item 11)"
+               if r["exception"] else ""))
+
+
+@phase("29 serving co-simulation")
+def serving_path(results, lane: _Workers):
+    """``lane``: the quick lane's workers (:func:`start_quick_lane`)."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch.serving import RequestShape, serving_cost, verdict_table
+    ref = _chip_reference()["serving"]
+    for config, want in ref["cost"].items():
+        c = serving_cost(config, RequestShape())
+        got = dict(n_params=c.n_params, n_active=c.n_active,
+                   kv_bytes_tok=c.kv_bytes_tok, decode_ai_1=c.decode_ai(1),
+                   decode_ai_32=c.decode_ai(32),
+                   request_flops=c.request_flops)
+        check(got == want, f"serving_cost({config}) {got}, the "
+              f"reference's {want}")
+    say("  serving_cost of " + ", ".join(ref["cost"]) + ": n_params, "
+        "n_active, kv_bytes_tok, decode_ai(1), decode_ai(32) as the "
+        "reference's")
+    quick = _bench_serving_quick()
+    check([dc.asdict(s) for s in quick] == [
+        dc.asdict(_serving_scenario(p)) for p in ref["quick_params"]],
+        "the copy of bench_serving.scenarios(quick=True) differs from the "
+        "reference's scenarios")
+    out, twins, launches_all, reports = {}, {}, {}, {}
+
+    def hold(key, sc, run, r, t, p):
+        reps, sec, launches, spy, counters = run
+        rows = _serving_hold(key, reps, spy, counters, r)
+        _say_serving(key, rows, sec, spy, launches)
+        if any(row["exception"] for row in rows.values()) \
+                and key == "smoke":
+            twins[key] = tw = _serving_twin(p, t)
+            say(f"    converged twin (n_cg {ref['twin_n_cg']}, "
+                f"{tw['seconds']:.2f} s): " + "; ".join(
+                    f"{m} peaks within {tw[m]['max_abs_dpeak_C']:.2e} C "
+                    f"of JAX's twin, time above {tw[m]['time_above']:.1f} "
+                    f"s, DTM x{tw[m]['dtm_slowdown']:.6f} "
+                    f"({tw[m]['dtm_rel']:.1e})" for m in ("ap", "simd")))
+        out[key] = dict(seconds=sec, intervals=spy.intervals,
+                        replays=len(spy.replays), launches=launches,
+                        counters=counters, reports=rows)
+        launches_all[key] = launches
+        if key != "smoke":
+            reports[sc.label] = reps
+
+    # the smoke scenario here, while the quick lane's workers run
+    sc = _serving_scenario(ref["smoke_params"])
+    smoke = _serving_run(sc, SERVING_RECORDED_CALLS)
+    reps, smoke_spy = smoke[0], smoke[3]
+    # the machines replay as one batch: the AP alone must give its
+    # report bit for bit
+    alone = _serving_run(sc, machines=("ap",))[0]["ap"]
+    ap_alone = all(np.array_equal(_bits(getattr(alone.stack, n)),
+                                  _bits(getattr(reps["ap"].stack, n)))
+                   for n in SWEEP_ARRAYS) \
+        and np.array_equal(alone.latency_s, reps["ap"].latency_s)
+    check(ap_alone, "the AP replayed alone differs from its report in the "
+          "batch of both machines")
+    say("  smoke: the AP replayed alone bit for bit its report in the "
+        "batch of both machines")
+    hold("smoke", sc, smoke, ref["smoke"], ref["smoke_twin"],
+         ref["smoke_params"])
+
+    t_wait = time.perf_counter()
+    lane_runs = lane.results()
+    waited = time.perf_counter() - t_wait
+    lane_wall = max(run[5] for run in lane_runs) - lane.t0
+    for sc, run, r, t, p in zip(quick, lane_runs, ref["quick"],
+                                ref["quick_twin"], ref["quick_params"]):
+        hold(f"quick/{sc.label}", sc, run[:5], r, t, p)
+    table = verdict_table(reports)
+    say("  verdict table (the card's, then the reference's):")
+    for line in table.splitlines():
+        say(f"    {line}")
+    for line in ref["table"].splitlines()[1:]:
+        say(f"    JAX {line}")
+    flat = [r for reps in reports.values() for r in reps.values()]
+    gates = dict(
+        n_cases=len(reports),
+        n_ap_ok=sum(r["ap"].verdict_ok for r in reports.values()),
+        n_simd_ok=sum(r["simd"].verdict_ok for r in reports.values()),
+        min_coarsen_x=min(r.coarsen_ratio for r in flat),
+        max_ap_throttle_residual=max(r["ap"].throttle_residual
+                                     for r in reports.values()),
+        max_error_bound_C=max(r.error_bound_C for r in flat))
+    ops = {">=": lambda a, b: a >= b, "<=": lambda a, b: a <= b,
+           "==": lambda a, b: a == b}
+    for k, (op, limit) in SERVING_GATES.items():
+        check(ops[op](gates[k], limit), f"bench gate {k} = {gates[k]}, "
+              f"not {op} {limit}")
+    say(f"  bench gates: " + ", ".join(
+        f"{k} {gates[k]:.4g} (JAX {ref['gates'][k]:.4g}; {op} {limit})"
+        for k, (op, limit) in SERVING_GATES.items()))
+    n_int = sum(v["intervals"] for k, v in out.items() if k != "smoke")
+    lane_s = sum(v["seconds"] for k, v in out.items() if k != "smoke")
+    say(f"  quick lane: {len(quick)} processes side by side, "
+        f"{lane_wall:.2f} s from their start (phase 26's) to the last "
+        f"one's end ({waited:.2f} s of it waited for here); "
+        f"{lane_s:.2f} s of their own for {n_int} coarse intervals of "
+        f"both machines, {lane_s / n_int * 1e3:.2f} ms each")
+    # timed with the card to this process alone
+    stencil = _serving_stencil_check(smoke_spy)
+    window = _serving_window(lane_runs[0][3])
+    total = {k: sum(v[k] for v in launches_all.values())
+             for k in next(iter(launches_all.values()))}
+    results["serving"] = dict(runs=out, twins=twins, gates=gates,
+                              ap_alone_bit_for_bit=ap_alone,
+                              table=table, window=window, stencil=stencil,
+                              quick_lane_s=lane_s, quick_lane_wall_s=lane_wall,
+                              quick_lane_waited_s=waited,
+                              quick_intervals=n_int, launches=total)
+    return total
+
+
 def _kernel_row(name, source, replaces, launches, r, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, **{k: r[k] for k in (
@@ -4011,13 +4664,21 @@ def main() -> int:
     coarsen_launches = coarsened_replay(results)
     fault_launches = fault_path(results)
     deep_launches = deep_stacks(results)
-    shard_launches = sharded_paths(results)
     lane_launches = lane_sharding(results)
     family_launches = model_families(results)
+    # the last two phases time no kernel: phase 29's quick lane runs in
+    # processes of its own beside phase 26 and phase 29's smoke scenario
+    lane = start_quick_lane()
+    try:
+        shard_launches = sharded_paths(results)
+        serving_launches = serving_path(results, lane)
+    finally:
+        lane.stop()
     new_paths = {"cosim_22": cosim_launches, "coarsened_replay_23":
                  coarsen_launches, "sensor_faults_24": fault_launches,
                  **{f"deep_25:{k}": v for k, v in deep_launches.items()},
-                 "sharded_26": shard_launches, **lane_launches}
+                 "sharded_26": shard_launches, **lane_launches,
+                 "serving_29": serving_launches}
 
     src = "src/repro_torch/kernels"
     ref = "src/repro/kernels"
@@ -4032,7 +4693,7 @@ def main() -> int:
 
     def sweep_paths(name):
         """A kernel's launches on each sweep path that launched it, and on
-        each of phases 22-27's paths."""
+        each of phases 22-27's and 29's paths."""
         return {**{f"sweep:{k}": v[name] for k, v in sweep_launches.items()
                    if v[name]}, **new_path_launches(name)}
 
@@ -4058,7 +4719,9 @@ def main() -> int:
                     launches["thermal_stencil"], results["stencil_main"],
                     launches_by_path=sweep_paths("thermal_stencil"),
                     sweep_shapes=sweep_shapes("thermal_stencil"),
-                    new_path_shapes=new_shapes("thermal_stencil")),
+                    new_path_shapes=dict(
+                        new_shapes("thermal_stencil"),
+                        serving_29=results["serving"]["stencil"])),
         _kernel_row("ap_match.run_schedule",
                     f"{src}/ap_match/csrc/ap_match.cu",
                     f"{ref}/ap_match/kernel.py:66",

@@ -20,24 +20,26 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models import rope as rope_mod
-from repro_torch.models.layers import NOSHARD, Sharder, dense_init
+from repro_torch.models.layers import (NOSHARD, Sharder, dense_init,
+                                       init_device)
 
 NEG = -1e30
 
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
-              d_model: int = 0) -> dict:
+              d_model: int = 0, *, device=None) -> dict:
     d = d_model or cfg.d_model
     dh = cfg.head_dim
+    dev = init_device(gen, device)
     p = {
-        "wq": dense_init(gen, d, cfg.n_heads * dh, dtype),
-        "wk": dense_init(gen, d, cfg.n_kv_heads * dh, dtype),
-        "wv": dense_init(gen, d, cfg.n_kv_heads * dh, dtype),
+        "wq": dense_init(gen, d, cfg.n_heads * dh, dtype, device=dev),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * dh, dtype, device=dev),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * dh, dtype, device=dev),
         "wo": dense_init(gen, cfg.n_heads * dh, d, dtype,
-                         scale=(cfg.n_heads * dh) ** -0.5),
+                         scale=(cfg.n_heads * dh) ** -0.5, device=dev),
     }
     if cfg.qkv_bias:
-        zeros = lambda n: torch.zeros((n,), dtype=dtype, device=gen.device)
+        zeros = lambda n: torch.zeros((n,), dtype=dtype, device=dev)
         p["bq"] = zeros(cfg.n_heads * dh)
         p["bk"] = zeros(cfg.n_kv_heads * dh)
         p["bv"] = zeros(cfg.n_kv_heads * dh)

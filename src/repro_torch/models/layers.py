@@ -1,7 +1,9 @@
 """Shared layers: norms, projections, SwiGLU MLP, embeddings, Sharder.
 
 The port's counterpart of the reference's ``models/layers.py``.  Weights
-are made with a ``torch.Generator`` on the generator's device.
+are made with a ``torch.Generator`` on the generator's device, or on the
+``device`` an init helper is given: ``"meta"`` builds every leaf's shape
+and dtype with no memory (``launch.steps.params_sds``).
 """
 from __future__ import annotations
 
@@ -72,20 +74,31 @@ def f32_matmul():
 # init helpers
 # ---------------------------------------------------------------------------
 
+def init_device(gen: torch.Generator, device=None) -> torch.device:
+    """Where an init helper puts its leaves: ``device``, or by default
+    the generator's device."""
+    return gen.device if device is None else torch.device(device)
+
+
+def randn(gen: torch.Generator, shape: tuple, device=None) -> torch.Tensor:
+    """Standard normal float32 draws from ``gen`` on ``device``; on
+    ``"meta"`` only the shape, with no draw."""
+    dev = init_device(gen, device)
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
-               dtype=torch.float32, scale: float | None = None
-               ) -> torch.Tensor:
+               dtype=torch.float32, scale: float | None = None,
+               device=None) -> torch.Tensor:
     scale = scale if scale is not None else d_in ** -0.5
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return (randn(gen, (d_in, d_out), device) * scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
-               dtype=torch.float32) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    return (randn(gen, (vocab, d), device) * 0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -116,11 +129,11 @@ def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def swiglu_init(gen: torch.Generator, d: int, d_ff: int,
-                dtype=torch.float32) -> dict:
+                dtype=torch.float32, device=None) -> dict:
     return {
-        "w_gate": dense_init(gen, d, d_ff, dtype),
-        "w_up": dense_init(gen, d, d_ff, dtype),
-        "w_down": dense_init(gen, d_ff, d, dtype),
+        "w_gate": dense_init(gen, d, d_ff, dtype, device=device),
+        "w_up": dense_init(gen, d, d_ff, dtype, device=device),
+        "w_down": dense_init(gen, d_ff, d, dtype, device=device),
     }
 
 
@@ -133,12 +146,13 @@ def swiglu(params: dict, x: torch.Tensor, shd: Sharder = NOSHARD
 
 
 def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int,
-                  dtype=torch.float32) -> dict:
+                  dtype=torch.float32, device=None) -> dict:
+    dev = init_device(gen, device)
     return {
-        "w_up": dense_init(gen, d, d_ff, dtype),
-        "b_up": torch.zeros((d_ff,), dtype=dtype, device=gen.device),
-        "w_down": dense_init(gen, d_ff, d, dtype),
-        "b_down": torch.zeros((d,), dtype=dtype, device=gen.device),
+        "w_up": dense_init(gen, d, d_ff, dtype, device=dev),
+        "b_up": torch.zeros((d_ff,), dtype=dtype, device=dev),
+        "w_down": dense_init(gen, d_ff, d, dtype, device=dev),
+        "b_down": torch.zeros((d,), dtype=dtype, device=dev),
     }
 
 

@@ -22,30 +22,32 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import rope as rope_mod
-from repro_torch.models.layers import (NOSHARD, Sharder, dense_init, rmsnorm,
-                                       rmsnorm_init)
+from repro_torch.models.layers import (NOSHARD, Sharder, dense_init,
+                                       init_device, rmsnorm, rmsnorm_init)
 
 NEG = -1e30
 
 
-def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32
-             ) -> dict:
+def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+             *, device=None) -> dict:
     m = cfg.mla
     d, H = cfg.d_model, cfg.n_heads
-    dev = gen.device
+    dev = init_device(gen, device)
     p = {}
     if m.q_lora:
-        p["wq_a"] = dense_init(gen, d, m.q_lora, dtype)
+        p["wq_a"] = dense_init(gen, d, m.q_lora, dtype, device=dev)
         p["q_norm"] = rmsnorm_init(m.q_lora, dtype, dev)
         p["wq_b"] = dense_init(gen, m.q_lora, H * (m.qk_nope + m.qk_rope),
-                               dtype)
+                               dtype, device=dev)
     else:
-        p["wq"] = dense_init(gen, d, H * (m.qk_nope + m.qk_rope), dtype)
-    p["wkv_a"] = dense_init(gen, d, m.kv_lora + m.qk_rope, dtype)
+        p["wq"] = dense_init(gen, d, H * (m.qk_nope + m.qk_rope), dtype,
+                             device=dev)
+    p["wkv_a"] = dense_init(gen, d, m.kv_lora + m.qk_rope, dtype, device=dev)
     p["kv_norm"] = rmsnorm_init(m.kv_lora, dtype, dev)
-    p["wkv_b"] = dense_init(gen, m.kv_lora, H * (m.qk_nope + m.v_dim), dtype)
+    p["wkv_b"] = dense_init(gen, m.kv_lora, H * (m.qk_nope + m.v_dim), dtype,
+                            device=dev)
     p["wo"] = dense_init(gen, H * m.v_dim, d, dtype,
-                         scale=(H * m.v_dim) ** -0.5)
+                         scale=(H * m.v_dim) ** -0.5, device=dev)
     return p
 
 

@@ -34,8 +34,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (NOSHARD, Sharder, dense_init,
                                        embed_init, f32_matmul, gelu_mlp,
-                                       gelu_mlp_init, layernorm, rmsnorm,
-                                       rmsnorm_init, swiglu, swiglu_init)
+                                       gelu_mlp_init, init_device, layernorm,
+                                       rmsnorm, rmsnorm_init, swiglu,
+                                       swiglu_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,19 +81,22 @@ def n_segments(cfg: ArchConfig) -> int:
 # ===========================================================================
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
-                dtype=torch.float32) -> dict:
-    """Random weights at the reference's init scales, on ``gen.device``.
+                dtype=torch.float32, *, device=None) -> dict:
+    """Random weights at the reference's init scales, on ``device``
+    (by default ``gen.device``).
 
     The numbers differ from the reference's (``jax.random`` and
     ``torch.Generator`` differ); ``interop.lm_params_from_seed`` makes
-    the same weights for both packages.
+    the same weights for both packages.  ``device="meta"`` builds the
+    tree's shapes and dtypes with no memory and no draw
+    (``launch.steps.params_sds``).
     """
     d = cfg.d_model
     vp = vocab_padded(cfg)
-    dev = gen.device
+    dev = init_device(gen, device)
     p: dict = {
-        "embed": embed_init(gen, vp, d, dtype),
-        "lm_head": dense_init(gen, d, vp, dtype),
+        "embed": embed_init(gen, vp, d, dtype, device=dev),
+        "lm_head": dense_init(gen, d, vp, dtype, device=dev),
         "final_norm": _norm_init(d, cfg, dtype, dev),
     }
 
@@ -100,38 +104,46 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
         return {n: _norm_init(d, cfg, dtype, dev) for n in names}
 
     def attn_block(attn, d_ff):
-        return {"attn": attn, "mlp": swiglu_init(gen, d, d_ff, dtype),
+        return {"attn": attn,
+                "mlp": swiglu_init(gen, d, d_ff, dtype, dev),
                 **norms("ln1", "ln2")}
 
+    def attn():
+        return attn_mod.attn_init(gen, cfg, dtype, device=dev)
+
+    def mla():
+        return mla_mod.mla_init(gen, cfg, dtype, device=dev)
+
     def ssm_layer():
-        return {"ssm": ssm_mod.ssm_init(gen, cfg, dtype), **norms("ln")}
+        return {"ssm": ssm_mod.ssm_init(gen, cfg, dtype, device=dev),
+                **norms("ln")}
 
     if cfg.family == "dense":
-        p["layers"] = [attn_block(attn_mod.attn_init(gen, cfg, dtype),
-                                  cfg.d_ff) for _ in range(cfg.n_layers)]
+        p["layers"] = [attn_block(attn(), cfg.d_ff)
+                       for _ in range(cfg.n_layers)]
     elif cfg.family == "moe":
         nd = cfg.moe.first_dense
         d_ff_dense = cfg.moe.d_ff_dense or 4 * d
-        p["dense_layers"] = [attn_block(mla_mod.mla_init(gen, cfg, dtype),
-                                        d_ff_dense) for _ in range(nd)]
-        p["layers"] = [{"attn": mla_mod.mla_init(gen, cfg, dtype),
-                        "moe": moe_mod.moe_init(gen, cfg, dtype),
+        p["dense_layers"] = [attn_block(mla(), d_ff_dense)
+                             for _ in range(nd)]
+        p["layers"] = [{"attn": mla(),
+                        "moe": moe_mod.moe_init(gen, cfg, dtype, device=dev),
                         **norms("ln1", "ln2")}
                        for _ in range(cfg.n_layers - nd)]
     elif cfg.family == "ssm":
         p["layers"] = [ssm_layer() for _ in range(cfg.n_layers)]
     elif cfg.family == "hybrid":
         p["layers"] = [ssm_layer() for _ in range(cfg.n_layers)]
-        p["shared_block"] = attn_block(attn_mod.attn_init(gen, cfg, dtype),
-                                       cfg.d_ff)
+        p["shared_block"] = attn_block(attn(), cfg.d_ff)
     elif cfg.family == "encdec":
-        p["enc_layers"] = [{"attn": attn_mod.attn_init(gen, cfg, dtype),
-                            "mlp": gelu_mlp_init(gen, d, cfg.d_ff, dtype),
+        p["enc_layers"] = [{"attn": attn(),
+                            "mlp": gelu_mlp_init(gen, d, cfg.d_ff, dtype,
+                                                 dev),
                             **norms("ln1", "ln2")}
                            for _ in range(cfg.n_enc_layers)]
-        p["layers"] = [{"self_attn": attn_mod.attn_init(gen, cfg, dtype),
-                        "cross_attn": attn_mod.attn_init(gen, cfg, dtype),
-                        "mlp": gelu_mlp_init(gen, d, cfg.d_ff, dtype),
+        p["layers"] = [{"self_attn": attn(),
+                        "cross_attn": attn(),
+                        "mlp": gelu_mlp_init(gen, d, cfg.d_ff, dtype, dev),
                         **norms("ln1", "ln2", "ln3")}
                        for _ in range(cfg.n_layers)]
         p["enc_norm"] = _norm_init(d, cfg, dtype, dev)

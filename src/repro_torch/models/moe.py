@@ -26,22 +26,24 @@ from repro_torch.models.layers import (NOSHARD, Sharder, dense_init, swiglu,
                                        swiglu_init)
 
 
-def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32
-             ) -> dict:
+def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+             *, device=None) -> dict:
     m = cfg.moe
     d, E = cfg.d_model, m.n_routed
 
     def stacked(d_in, d_out):
-        return torch.stack([dense_init(gen, d_in, d_out, dtype)
+        return torch.stack([dense_init(gen, d_in, d_out, dtype, device=device)
                             for _ in range(E)])
     p = {
-        "router": dense_init(gen, d, E, torch.float32),   # fp32 router
+        "router": dense_init(gen, d, E, torch.float32,   # fp32 router
+                             device=device),
         "experts": {"w_gate": stacked(d, m.d_expert),
                     "w_up": stacked(d, m.d_expert),
                     "w_down": stacked(m.d_expert, d)},
     }
     if m.n_shared:
-        p["shared"] = swiglu_init(gen, d, m.n_shared * m.d_expert, dtype)
+        p["shared"] = swiglu_init(gen, d, m.n_shared * m.d_expert, dtype,
+                                  device)
     return p
 
 

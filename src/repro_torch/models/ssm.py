@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import (NOSHARD, Sharder, dense_init, rmsnorm,
+from repro_torch.models.layers import (NOSHARD, Sharder, dense_init,
+                                       init_device, randn, rmsnorm,
                                        rmsnorm_init)
 
 
@@ -33,50 +34,52 @@ def d_inner(cfg: ArchConfig) -> int:
     return cfg.ssm.expand * cfg.d_model
 
 
-def ssm_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32
-             ) -> dict:
+def ssm_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+             *, device=None) -> dict:
     s = cfg.ssm
     d = cfg.d_model
     din = d_inner(cfg)
     N = s.d_state
-    dev = gen.device
+    dev = init_device(gen, device)
 
     def const(shape, value):
         return torch.full(shape, value, dtype=torch.float32, device=dev)
 
     def conv_w():
-        w = torch.randn((s.d_conv, din), generator=gen, device=dev)
+        w = randn(gen, (s.d_conv, din), dev)
         return (w * (s.d_conv * din) ** -0.5).to(dtype)
     if s.version == 1:
         r = _dt_rank(cfg)
         return {
             # split x/z projections, as the reference keeps them
-            "in_proj_x": dense_init(gen, d, din, dtype),
-            "in_proj_z": dense_init(gen, d, din, dtype),
+            "in_proj_x": dense_init(gen, d, din, dtype, device=dev),
+            "in_proj_z": dense_init(gen, d, din, dtype, device=dev),
             "conv_w": conv_w(),
             "conv_b": torch.zeros((din,), dtype=dtype, device=dev),
-            "x_proj": dense_init(gen, din, r + 2 * N, dtype),
-            "dt_proj": dense_init(gen, r, din, dtype),
+            "x_proj": dense_init(gen, din, r + 2 * N, dtype, device=dev),
+            "dt_proj": dense_init(gen, r, din, dtype, device=dev),
             "dt_bias": const((din,), -4.6),        # softplus ~ 0.01
             "A_log": torch.log(torch.arange(
                 1, N + 1, dtype=torch.float32, device=dev)).expand(
                     din, N).clone(),
             "D": const((din,), 1.0),
-            "out_proj": dense_init(gen, din, d, dtype, scale=din ** -0.5),
+            "out_proj": dense_init(gen, din, d, dtype, scale=din ** -0.5,
+                                   device=dev),
         }
     H = din // s.headdim                            # mamba2 / SSD
     return {
-        "in_proj_x": dense_init(gen, d, din, dtype),
-        "in_proj_z": dense_init(gen, d, din, dtype),
-        "in_proj_bc": dense_init(gen, d, 2 * N, dtype),
-        "in_proj_dt": dense_init(gen, d, H, dtype),
+        "in_proj_x": dense_init(gen, d, din, dtype, device=dev),
+        "in_proj_z": dense_init(gen, d, din, dtype, device=dev),
+        "in_proj_bc": dense_init(gen, d, 2 * N, dtype, device=dev),
+        "in_proj_dt": dense_init(gen, d, H, dtype, device=dev),
         "conv_w": conv_w(),
         "conv_b": torch.zeros((din,), dtype=dtype, device=dev),
         "dt_bias": const((H,), -4.6),
         "A_log": const((H,), 0.0),
         "D": const((H,), 1.0),
         "norm_w": rmsnorm_init(din, dtype, dev),
-        "out_proj": dense_init(gen, din, d, dtype, scale=din ** -0.5),
+        "out_proj": dense_init(gen, din, d, dtype, scale=din ** -0.5,
+                               device=dev),
     }
 
 

@@ -134,6 +134,9 @@ class FeedbackParams:
 # closed-loop replay core (loop over intervals, batched over cases)
 # ---------------------------------------------------------------------------
 
+# the replay is never differentiated, so none of its thousands of small
+# launches an interval pays for autograd's bookkeeping
+@torch.no_grad()
 def _closed_loop(dyn_frames, leak0, refresh0, logic_mask, F, cap3,
                  interval_dt, theta, t_amb, *, fb: FeedbackParams,
                  steps_per_interval: int, n_cg: int, n_die: int,
@@ -265,16 +268,18 @@ def closed_loop_batch(dyn_frames, leak0, refresh0, logic_mask, F: dict,
                       die_n: int, n_die: int, steps_per_interval: int = 2,
                       n_cg: int = 40, margin: int = 0,
                       use_pallas: bool = False, solver: str = "pcg",
-                      n_mg: int = 3):
+                      n_mg: int = 3, dt_scale=None):
     """Closed-loop replay over a leading design-point batch: every input
     of :func:`closed_loop_replay` with a leading ``[B]`` dimension, and
-    every output likewise."""
+    every output likewise; ``dt_scale`` [T] (the port's addition: the
+    serving co-simulation replays its machines as one batch) is shared
+    by the batch."""
     thermal.check_solver(solver)
     return _closed_loop(dyn_frames, leak0, refresh0, logic_mask, F, cap3,
                         interval_dt, theta, t_amb, fb=fb,
                         steps_per_interval=steps_per_interval, n_cg=n_cg,
                         n_die=n_die, margin=margin, die_n=die_n,
-                        solver=solver, n_mg=n_mg)
+                        solver=solver, n_mg=n_mg, dt_scale=dt_scale)
 
 
 def closed_loop_sharded(dyn_frames, leak0, refresh0, logic_mask, F: dict,

@@ -111,3 +111,40 @@ def test_model_family_entry_points_raise_without_a_card(no_card, name):
         generate(params, tokens, cfg, 2, batch_extra=extra)
     assert generate(params, tokens, cfg, 2, device="cpu",
                     batch_extra=extra)["tokens"].shape == (1, 3)
+
+
+def test_serving_cosim_raises_without_a_card(no_card):
+    """``run_serving_cosim`` replays on the card unless it is given
+    ``device="cpu"``; the shape-only parameter tree never touches a
+    device, and ``resolve_device`` keeps rejecting ``"meta"`` for entry
+    points."""
+    from repro_torch import resolve_device
+    from repro_torch.launch.steps import params_sds
+    from repro_torch.serving import (ServingScenario, TrafficSpec,
+                                     run_serving_cosim, serving_cost)
+    sc = ServingScenario(config="stablelm-1.6b",
+                         traffic=TrafficSpec(horizon_s=8.0), grid_n=4,
+                         n_rounds=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_serving_cosim(sc)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_serving_cosim(sc, ("ap",))
+    assert serving_cost("stablelm-1.6b").n_params > 0
+    from repro_torch.configs import get_config
+    assert all(l.device.type == "meta" for l in _tensors(
+        params_sds(get_config("qwen2-vl-72b"))))
+    with pytest.raises(ValueError, match="meta"):
+        resolve_device("meta")
+    reps = run_serving_cosim(sc, ("ap",), device="cpu")
+    assert reps["ap"].n_base == 8
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree

@@ -506,3 +506,76 @@ def test_fault_specs_and_guard_reference_positional_arguments():
 def dataclasses_astuple(x):
     import dataclasses
     return dataclasses.astuple(x)
+
+
+def test_serving_entry_points_have_the_references_signatures():
+    """The serving package and the parameter-count path take the
+    reference's parameters in the reference's positions; ``device`` is
+    ``run_serving_cosim``'s own keyword-only addition, and the dataclasses
+    have the reference's fields in order."""
+    import dataclasses
+    from repro import serving as J
+    from repro.launch import roofline as JRF
+    from repro.launch import steps as jsteps
+    from repro.serving import sim as jsim
+    from repro_torch import serving as S
+    from repro_torch.launch import roofline as TRF
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.serving import sim as tsim
+    pairs = [(J.run_serving_cosim, S.run_serving_cosim, ["device"]),
+             (J.fluid_queue, S.fluid_queue, []),
+             (J.serving_cost, S.serving_cost, []),
+             (J.kv_bytes_per_token, S.kv_bytes_per_token, []),
+             (J.verdict_table, S.verdict_table, []),
+             (jsim._machine_floorplan, tsim._machine_floorplan, []),
+             (jsteps.params_sds, tsteps.params_sds, []),
+             (JRF.count_params, TRF.count_params, []),
+             (JRF.count_active_params, TRF.count_active_params, []),
+             (JRF.model_flops_per_device, TRF.model_flops_per_device, []),
+             (JRF.roofline, TRF.roofline, []),
+             (JRF.parse_collectives, TRF.parse_collectives, [])]
+    for ref, port, extra in pairs:
+        rp, rk = _params(ref)
+        pp, pk = _params(port)
+        assert pp == rp, port.__name__
+        assert pk == sorted(rk + extra), port.__name__
+    for ref, port in ((J.ServingScenario, S.ServingScenario),
+                      (J.ServingReport, S.ServingReport),
+                      (J.QueueResult, S.QueueResult),
+                      (J.TrafficSpec, S.TrafficSpec),
+                      (J.RequestShape, S.RequestShape),
+                      (J.ModelServingCost, S.ModelServingCost),
+                      (JRF.RooflineTerms, TRF.RooflineTerms)):
+        assert [f.name for f in dataclasses.fields(port)] \
+            == [f.name for f in dataclasses.fields(ref)], port.__name__
+    for name in ("rate_qps", "arrivals"):
+        assert _params(getattr(S.TrafficSpec, name)) \
+            == _params(getattr(J.TrafficSpec, name)), name
+    for name in ("decode_step_bytes", "decode_ai", "workload",
+                 "traffic_bytes_per_s"):
+        assert _params(getattr(S.ModelServingCost, name)) \
+            == _params(getattr(J.ModelServingCost, name)), name
+    for name in ("time_above", "throttle_curve"):
+        assert _params(getattr(S.ServingReport, name)) \
+            == _params(getattr(J.ServingReport, name)), name
+
+
+def test_run_serving_cosim_reference_positional_arguments():
+    """``run_serving_cosim(scenario, machines, fb, params, coarsen)``
+    positionally, as the reference takes it: the reference's plan and
+    rate, its peaks within 0.1 °C."""
+    from repro import serving as J
+    from repro_torch import serving as S
+    from repro_torch.stack.spec import PAPER_STACK
+    kw = dict(config="deepseek-v2-lite-16b", load=0.5, grid_n=8,
+              n_rounds=1, coarsen_tol=0.05, pad_quantum=8)
+    ref = J.run_serving_cosim(J.ServingScenario(
+        traffic=J.TrafficSpec(shape="bursty", horizon_s=40.0), **kw),
+        ("ap",), jfb.FeedbackParams(), jfb.PAPER_STACK, True)["ap"]
+    got = S.run_serving_cosim(S.ServingScenario(
+        traffic=S.TrafficSpec(shape="bursty", horizon_s=40.0), **kw),
+        ("ap",), tfb.FeedbackParams(), PAPER_STACK, True,
+        device="cpu")["ap"]
+    assert (got.n_coarse, got.mean_qps) == (ref.n_coarse, ref.mean_qps)
+    np.testing.assert_array_equal(got.durations_s, ref.durations_s)
+    np.testing.assert_allclose(got.stack.peak_C, ref.stack.peak_C, atol=0.1)

@@ -1,4 +1,4 @@
-"""JAX reference values for ``chip_smoke.py``'s phases 22-28.
+"""JAX reference values for ``chip_smoke.py``'s phases 22-29.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_reference.py
 
@@ -37,6 +37,19 @@ port's chip run is held against this file.
   on ``bench_cycles.py``'s inputs (normal draws seeded by N): the
   cycles, every counter with the float64 energy, and SHA-256 digests of
   the result bits and of the trace arrays.
+- ``families`` (phase 28): four configs at their published widths, cut
+  in depth (``FAMILY_DEPTHS``), seeded weights: prefill and greedy decode
+  steps (argmax, leading logits, sums of squares).
+- ``serving`` (phase 29): ``run_serving_cosim`` of
+  ``tests/test_serving.py``'s smoke scenario and of
+  ``benchmarks/bench_serving.py``'s four quick scenarios (stablelm-1.6b
+  and deepseek-v2-lite-16b x diurnal and bursty, 3600 s), both machines:
+  each report's summary (resolved QPS, base and coarse interval counts,
+  the coarse plan, latency percentiles, peaks, DTM slowdown, time above
+  85 °C, verdict, error bound, throttle residual), SHA-256 digests of the
+  first round's ``stack_power_frames`` outputs, the verdict table, the
+  bench's gated aggregates, ``serving_cost`` of both configs, and each
+  scenario again at ``n_cg=120`` (the converged twins).
 """
 from __future__ import annotations
 
@@ -64,6 +77,8 @@ from repro.policy import PerDiePolicy
 from repro.stack import dram, feedback
 from repro.stack.spec import PAPER_STACK, dram_on_logic
 from repro.models import serve as RS
+from repro.serving import (RequestShape, ServingScenario, TrafficSpec,
+                           run_serving_cosim, serving_cost, verdict_table)
 from repro.sweep import SweepSpec, run_sweep
 from repro_torch import configs as tcfg
 from repro_torch import interop
@@ -369,10 +384,116 @@ def families_phase() -> dict:
                 runs={name: family_run(name) for name in FAMILY_DEPTHS})
 
 
+#: phase 29's scenarios: ``tests/test_serving.py``'s smoke scenario, and
+#: ``benchmarks/bench_serving.py``'s ``scenarios(quick=True)`` (a copy:
+#: its configs x shapes over one hour, at load 0.7, grid 8, tol 0.02,
+#: padded to multiples of 64, two rounds); the twins at ``TWIN_N_CG``
+SERVING_SMOKE = dict(config="stablelm-1.6b", shape="diurnal",
+                     horizon_s=120.0, load=0.6, grid_n=8, n_rounds=2,
+                     coarsen_tol=0.05, pad_quantum=16)
+SERVING_QUICK = [dict(config=c, shape=sh, horizon_s=3600.0, load=0.7,
+                      grid_n=8, coarsen_tol=0.02, pad_quantum=64,
+                      n_rounds=2)
+                 for c in ("stablelm-1.6b", "deepseek-v2-lite-16b")
+                 for sh in ("diurnal", "bursty")]
+SERVING_TWIN_N_CG = 120
+
+
+def serving_scenario(p: dict, n_cg: int = 25) -> ServingScenario:
+    kw = {k: v for k, v in p.items() if k not in ("shape", "horizon_s")}
+    return ServingScenario(traffic=TrafficSpec(shape=p["shape"],
+                                               horizon_s=p["horizon_s"]),
+                           n_cg=n_cg, **kw)
+
+
+def _frames_digest(frames) -> str:
+    return _digest(*(np.asarray(x, np.float32) for x in frames))
+
+
+def serving_report(r) -> dict:
+    return dict(
+        mean_qps=r.mean_qps, n_base=r.n_base, n_coarse=r.n_coarse,
+        durations_sha256=_digest(np.asarray(r.durations_s, np.float64)),
+        p50_s=r.p50_s, p99_s=r.p99_s, dtm_slowdown=r.dtm_slowdown,
+        time_above=r.time_above(), verdict_ok=bool(r.verdict_ok),
+        logic_peak_C=float(r.stack.logic_peak_C.max()),
+        dram_peak_C=float(r.stack.dram_peak_C.max()),
+        throttle_min=float(r.stack.throttle.min()),
+        n_throttled=int((r.stack.throttle < 1.0).sum()),
+        max_picard_residual_C=float(r.stack.residual_C.max()),
+        error_bound_C=r.error_bound_C,
+        throttle_residual=r.throttle_residual,
+        coarsen_ratio=r.coarsen_ratio, served_qps=r.served_qps,
+        n_requests=int(r.latency_s.size))
+
+
+def serving_run(p: dict, n_cg: int = 25) -> dict:
+    """One scenario on both machines, with the first round's frames of
+    each machine digested as ``stack_power_frames`` returns them."""
+    sc = serving_scenario(p, n_cg)
+    frames, orig = [], feedback.stack_power_frames
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        frames.append(_frames_digest(out))
+        return out
+    feedback.stack_power_frames = spy
+    try:
+        t0 = time.time()
+        reps = run_serving_cosim(sc)
+        seconds = time.time() - t0
+    finally:
+        feedback.stack_power_frames = orig
+    # two rounds a machine: the first round's frames are calls 0 and 2
+    n_rounds = sc.n_rounds
+    out = dict(label=sc.label, seconds=seconds, reports={})
+    for i, (m, r) in enumerate(reps.items()):
+        out["reports"][m] = dict(serving_report(r),
+                                 frames_round1_sha256=frames[i * n_rounds])
+    r0 = next(iter(reps.values()))
+    out["plan"] = dict(reps=[int(v) for v in
+                             np.round(r0.durations_s
+                                      / sc.traffic.interval_s)],
+                       n_coarse=r0.n_coarse, n_base=r0.n_base)
+    out["table"] = verdict_table({sc.label: reps})
+    return out, reps
+
+
+def serving_phase() -> dict:
+    out = dict(smoke_params=SERVING_SMOKE, quick_params=SERVING_QUICK,
+               twin_n_cg=SERVING_TWIN_N_CG, cost={})
+    for config in ("stablelm-1.6b", "deepseek-v2-lite-16b"):
+        c = serving_cost(config, RequestShape())
+        out["cost"][config] = dict(
+            n_params=c.n_params, n_active=c.n_active,
+            kv_bytes_tok=c.kv_bytes_tok, decode_ai_1=c.decode_ai(1),
+            decode_ai_32=c.decode_ai(32), request_flops=c.request_flops)
+    out["smoke"], _ = serving_run(SERVING_SMOKE)
+    out["smoke_twin"], _ = serving_run(SERVING_SMOKE, SERVING_TWIN_N_CG)
+    out["quick"], out["quick_twin"], all_reps = [], [], {}
+    for p in SERVING_QUICK:
+        run, reps = serving_run(p)
+        out["quick"].append(run)
+        all_reps[run["label"]] = reps
+        out["quick_twin"].append(serving_run(p, SERVING_TWIN_N_CG)[0])
+    flat = [r for reps in all_reps.values() for r in reps.values()]
+    out["table"] = verdict_table(all_reps)
+    out["gates"] = dict(
+        n_cases=len(all_reps),
+        n_ap_ok=sum(r["ap"].verdict_ok for r in all_reps.values()),
+        n_simd_ok=sum(r["simd"].verdict_ok for r in all_reps.values()),
+        min_coarsen_x=min(r.coarsen_ratio for r in flat),
+        max_ap_throttle_residual=max(r["ap"].throttle_residual
+                                     for r in all_reps.values()),
+        max_error_bound_C=max(r.error_bound_C for r in flat))
+    return out
+
+
 def main(argv) -> int:
     phases = dict(cosim=cosim_phase, coarsen=coarsen_phase,
                   faults=faults_phase, deep=deep_phase, shard=shard_phase,
-                  apfloat=apfloat_phase, families=families_phase)
+                  apfloat=apfloat_phase, families=families_phase,
+                  serving=serving_phase)
     want = argv or list(phases)
     data = json.loads(OUT.read_text()) if OUT.exists() else {}
     for name in want:
