@@ -5,10 +5,11 @@
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit.  It builds the port's hand-written kernels from ``src/`` and runs
 these phases, each printing one line with its result and seconds, in this
-order but for the last three: 27 and 28 run before 26, and phase 29's
-quick lane runs in four processes of its own, started before phase 26 so
-that its host-bound replays overlap phase 26's and the smoke scenario's
-(none of the three times a kernel):
+order but for the last four: 27, 28 and 30 run before 26, phase 30's
+(c) and (d) in a process of their own, and phase 29's quick lane in four
+processes of its own, all five started before phase 26 so that their
+host-bound work overlaps phase 26's and the smoke scenario's (none of
+them times a kernel):
 
 1. the card's name and power limit (``nvidia-smi``), then the kernel build;
 2. the thermal-stencil kernel against its plain PyTorch version on the
@@ -246,12 +247,41 @@ that its host-bound replays overlap phase 26's and the smoke scenario's
     stencil bit for bit against its plain version on the first
     ``SERVING_RECORDED_CALLS`` calls of the smoke scenario's first
     replay, timed there, and the device-busy share of a 4-interval window
-    of the quick lane's first replay (``torch.profiler``).
-Phases 22-29 read their parameters and the JAX reference's values from
+    of the quick lane's first replay (``torch.profiler``);
+30. training, run after 28 and before the quick lane starts: (a) the flash
+    backward kernel (``flash_attention_bwd.cu``) against autograd through
+    the plain version on the card (``FLASH_BWD_CASES``: stablelm's
+    training shape [1, 4096, 32, 64] causal in float32 and bfloat16,
+    danube's GQA with window 64, whisper's cross attention, a ragged
+    causal case and rows with no valid key), dq, dk and dv each within
+    ``FLASH_BWD_TOL`` normwise, two runs bit for bit, timed with CUDA
+    events beside its bound (10 dh flops a visible pair, for float32 at
+    the 3xTF32 rate as phase 17 bounds the forward), the plain version's
+    backward and ``scaled_dot_product_attention``'s; (b)
+    stablelm-1.6b at its published width and depth (``TRAIN_FULL``:
+    float32 weights from a seeded CUDA generator, 2 x 4096 tokens in 2
+    microbatches, full remat): its first step with the plain attention
+    from the same weights, then 3 steps of ``make_train_step`` with the
+    kernels: losses and gradient norms finite, every leaf updated, flash
+    launches a step 96 forward (remat runs each forward twice) and 48
+    backward, step 1 within ``TRAIN_PLAIN_LOSS_RTOL`` and
+    ``TRAIN_PLAIN_GNORM_RTOL`` of the plain step; seconds a step,
+    tokens/s, peak memory, and the third step under ``torch.profiler``
+    (device time of the kernels, copies and sets alone: the matrix
+    products, the flash forward and backward kernels, the optimizer's,
+    the rest; the idle share); then, in a process of its own started
+    before phase 26 and held after it: (c) ``train_loop`` at
+    ``tests/test_runtime.py``'s size, 10 steps with a checkpoint every 4,
+    and again stopped after 6 and restarted from new tensors: the same
+    losses bit for bit, and JAX's within ``TRAIN_REF_RTOL``; (d) one
+    ``loss_fn`` gradient of each of the ten reduced configs: loss, nll,
+    aux and the gradient norm within ``TRAIN_REF_RTOL`` of JAX's, the
+    flash backward launched for the dense, hybrid and encdec families.
+Phases 22-30 read their parameters and the JAX reference's values from
 ``tools/chip_reference.json`` (``tools/chip_reference.py``); 22-25 rerun
 every kernel they launched on the inputs they gave it, as in 20.
 
-Phases 5, 9-12, 14-16 and 18-29 each set every kernel's launch counter
+Phases 5, 9-12, 14-16 and 18-30 each set every kernel's launch counter
 to 0 just before they drive their path and read the counters just after;
 a kernel of the path that was not launched fails the phase.  The model's
 entry points (``forward``, ``prefill``, ``decode_step``) and phase 17's
@@ -264,7 +294,10 @@ phase 14's megakernel-mode captures, with those of unconditional groups
 by path; the flash kernel's row
 holds phase 17's serve prefill shape at B = 4, its launches are phase
 18's prefill and its ``device_ms`` the profiled prefill's time a launch
-at that shape); the last line is ``{"ok": true, "device": {...}}``.  Any
+at that shape; the flash backward's row holds phase 30's stablelm shape,
+its launches are those of (b)'s three steps and its ``device_ms`` the
+profiled step's time a launch); the last line is ``{"ok": true,
+"device": {...}}``.  Any
 failure exits non-zero before those lines, and the line before them gives the whole run's
 seconds.  Without a CUDA card, or outside a checkout of the
 repository, it exits non-zero and prints no result.  The full results also
@@ -704,7 +737,8 @@ def _kernel_wrappers() -> dict:
             "mg_smooth": mg_ops.rb_line_sweep,
             "thermal_stencil_uniform": st_ops.apply_operator,
             "ap_megakernel": mk_ops.run_group,
-            "flash_attention": fa_ops.mha}
+            "flash_attention": fa_ops.mha,
+            "flash_attention_bwd": fa_ops.mha_backward}
 
 
 def reset_launches() -> None:
@@ -1819,7 +1853,8 @@ def serve_path(results):
     # prefill + teacher-forced decode of sequence 0 against forward
     seq = torch.cat([tokens[:1].cuda(), out["tokens"][:1, :G]], 1)
     reset_launches()
-    full, _ = M.forward(params, {"tokens": seq}, cfg)
+    with torch.no_grad():
+        full, _ = M.forward(params, {"tokens": seq}, cfg)
     fwd_launches = read_launches()["flash_attention"]
     errs = [float((out["logits"][i, 0] - full[0, P - 1 + i]).abs().max())
             for i in range(G + 1)]
@@ -3937,7 +3972,9 @@ def _family_serve(name: str, run: dict, card: str) -> dict:
 
     seq = torch.cat([tokens[:1].cuda(), out["tokens"][:1, :G]], 1)
     reset_launches()
-    full, aux = M.forward(params, {"tokens": seq, **first}, cfg, perf=perf)
+    with torch.no_grad():
+        full, aux = M.forward(params, {"tokens": seq, **first}, cfg,
+                              perf=perf)
     fwd_launches = read_launches()["flash_attention"]
     errs = [float((out["logits"][i, 0] - full[0, P - 1 + i]).abs().max())
             for i in range(G + 1)]
@@ -4605,6 +4642,548 @@ def serving_path(results, lane: _Workers):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 30: training
+# ---------------------------------------------------------------------------
+
+#: phase 30 (a): the flash backward kernel's cases, (B, Sq, Sk, Hq, Hkv,
+#: dh, causal, window, dtype, timed calls): the shape stablelm-1.6b's
+#: training step (b) gives it, danube's GQA with a window, whisper's cross
+#: attention (224 queries on 1500 keys, no mask), a ragged causal case
+#: (offset 30), rows with no valid key (Sq > Sk, causal: the first 36 rows
+#: see nothing) and the training shape in bfloat16
+FLASH_BWD_CASES = {
+    "stablelm_train": (1, 4096, 4096, 32, 32, 64, True, None, "float32", 5),
+    "danube_gqa_window": (2, 1024, 1024, 32, 8, 120, True, 64, "float32",
+                          5),
+    "whisper_cross": (4, 224, 1500, 8, 8, 64, False, None, "float32", 10),
+    "ragged_causal": (1, 100, 130, 4, 2, 32, True, None, "float32", 20),
+    "rows_without_keys": (1, 100, 64, 4, 2, 64, True, None, "float32", 20),
+    "stablelm_train_bf16": (1, 4096, 4096, 32, 32, 64, True, None,
+                            "bfloat16", 5),
+}
+#: dq, dk, dv against autograd through the plain version, each as the
+#: normwise gap ||kernel - plain|| / ||plain||: float32 sums in another
+#: order (about 1e-6 expected); for bfloat16 inputs the plain version
+#: differentiates the same bf16 values in float32 while the kernel rounds
+#: each gradient to bf16 (2^-9 relative)
+FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: (b): stablelm-1.6b at its published width and depth, float32 weights
+#: from a seeded CUDA generator, 2 x 4096 tokens (train_4k's sequence
+#: length) in 2 microbatches under full remat, AdamW at its defaults
+TRAIN_FULL = dict(config="stablelm-1.6b", global_batch=2, seq_len=4096,
+                  accum_steps=2, remat="full", steps=3, seed=0)
+#: step 1 against the same step with the plain attention on the card:
+#: the same float32 function through other kernels
+TRAIN_PLAIN_LOSS_RTOL = 1e-5
+TRAIN_PLAIN_GNORM_RTOL = 1e-4
+#: (c), (d): the port against JAX's values in chip_reference.json
+#: (``training``), float32 on both sides, summed in other orders (cuBLAS
+#: and the flash kernels against XLA's CPU), over up to ten AdamW steps
+TRAIN_REF_RTOL = 1e-4
+#: (d): the configs whose attention goes through the flash kernels (MLA
+#: and the SSMs attend in plain PyTorch)
+FLASH_FAMILIES = ("dense", "hybrid", "encdec")
+
+
+def _rel(got, want) -> float:
+    import torch
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _flash_bwd_case(label: str, case: tuple) -> dict:
+    """One backward case: the kernel against the plain version's autograd,
+    twice bit for bit, timed beside its bound, the plain version's
+    backward and ``scaled_dot_product_attention``'s."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.models.layers import f32_matmul
+    B, sq, sk, hq, hkv, dh, causal, window, dt, reps = case
+    dtype = getattr(torch, dt)
+    rng = np.random.default_rng(sq + sk + dh + 1)
+    q, k, v, d_out = (
+        torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        .to("cuda", dtype) for shape in ((B, sq, hq, dh), (B, sk, hkv, dh),
+                                         (B, sk, hkv, dh), (B, sq, hq, dh)))
+    kw = dict(causal=causal, window=window)
+    scale = dh ** -0.5
+    with f32_matmul():
+        _, out32, lse = ops._forward(q, k, v, causal, window, scale, True)
+
+        def kernel():
+            return ops.mha_backward(q, k, v, out32, lse, d_out, **kw)
+        got, again = kernel(), kernel()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        want = ref.mha_backward(q.float(), k.float(), v.float(),
+                                d_out.float(), **kw)
+        gaps = {n: _rel(g.float(), w) for n, g, w in zip("qkv", got, want)}
+        err = max(float((g.float() - w).abs().max())
+                  for g, w in zip(got, want))
+        del again, want
+        check(same, f"flash backward {label}: two runs differ")
+        check(all(np.isfinite(list(gaps.values()))) and
+              max(gaps.values()) <= FLASH_BWD_TOL[dt],
+              f"flash backward {label}: normwise gaps {gaps} (tol "
+              f"{FLASH_BWD_TOL[dt]:g})")
+        ms = cuda_ms(kernel, reps)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            plain_out = ops.mha(*leaves, backend="plain", **kw)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(
+            plain_out, leaves, d_out, retain_graph=True), max(2, reps // 2))
+        del plain_out, leaves
+        mask = ref.attention_mask(sq, sk, causal=causal, window=window,
+                                  device="cuda")
+        lib = None
+        if bool(mask.any(-1).all()):
+            # SDPA gives NaN on a row with no valid key: no yardstick there
+            lt = [t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v)]
+            with torch.enable_grad():
+                lo = F.scaled_dot_product_attention(
+                    *lt, attn_mask=mask, scale=scale, enable_gqa=hq != hkv)
+            do_t = d_out.transpose(1, 2)
+            lib = cuda_ms(lambda: torch.autograd.grad(
+                lo, lt, do_t, retain_graph=True), reps)
+            del lo, lt
+    pairs = int(mask.sum()) * B * hq
+    esz = q.element_size()
+    nq, nkv = B * sq * hq * dh, B * sk * hkv * dh
+    # q, k, v, dO in; o and lse (float32) in; dq, dk, dv out
+    n_bytes = esz * (2 * nq + 2 * nkv) + 4 * (nq + B * hq * sq) \
+        + esz * (nq + 2 * nkv)
+    flops = 10 * dh * pairs       # S, dP, dV, dK, dQ: 2 dh flops a pair each
+    # float32 at float32 accuracy on the tensor cores is 3xTF32 (three
+    # TF32 products a product), as phase 17 bounds the forward; the
+    # CUDA-core bound, the rate this kernel runs at, is kept beside it
+    if dtype == torch.bfloat16:
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_OPS_PER_S)
+    else:
+        b_ms, b_by = bound_ms(n_bytes, 3 * flops, TF32_OPS_PER_S)
+    core_ms = bound_ms(n_bytes, flops)[0]
+    out = dict(shape=[B, sq, sk, hq, hkv, dh], causal=causal, window=window,
+               dtype=dt, pairs=pairs, gaps=gaps, tol=FLASH_BWD_TOL[dt],
+               max_abs_err=err, bit_for_bit=same, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+               tflops=flops / ms / 1e9,
+               cuda_core_bound_ms=None if dtype == torch.bfloat16 else
+               core_ms)
+    say(f"  flash backward {label} {[B, sq, sk, hq, hkv, dh]} causal="
+        f"{causal} window={window} {dt}: gaps dq {gaps['q']:.2e} dk "
+        f"{gaps['k']:.2e} dv {gaps['v']:.2e} (tol {FLASH_BWD_TOL[dt]:g}), "
+        f"two runs bit for bit; kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} "
+        f"TFLOP/s of the 10 dh flops a pair), plain {plain_ms:.3f} ms, SDPA "
+        + ("n/a" if lib is None else f"{lib:.3f} ms")
+        + f", bound {b_ms:.4f} ms ({b_by}"
+        + ("" if dtype == torch.bfloat16 else
+           f"; f32 CUDA-core bound {core_ms:.4f} ms") + ")")
+    return out
+
+
+#: the kinds of device event that are work on the card (``torch.profiler``
+#: also shows a ``record_function`` span on the card, as a user
+#: annotation over the kernels it holds)
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _step_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time and the
+    device time of its kernels, copies and sets by kind (matrix products,
+    the flash forward, the flash backward's three kernels, the rest), of
+    which the optimizer's (the kernels under ``adamw_update``).  The
+    device is busy for the union of their intervals; a sum above it
+    means that events overlapped, and a union above the wall time that
+    the profile is not to be trusted: then the idle share is None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds = {"gemm": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0, "other": 0.0}
+    work, left_out = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        act = getattr(e, "activity_type", None)
+        if getattr(e, "is_user_annotation", False) or \
+                (act is not None and act not in DEVICE_WORK):
+            left_out[f"{act}:{e.name}"] = left_out.get(
+                f"{act}:{e.name}", 0.0) + e.time_range.elapsed_us() / 1e3
+            continue
+        work.append((e.time_range.start, e.time_range.end))
+        name = e.name.lower()
+        kind = "flash_bwd" if "flash_bwd" in name else \
+            "flash_fwd" if "flash_fwd" in name else \
+            "gemm" if any(w in name for w in ("gemm", "cutlass", "xmma",
+                                              "cublas")) else "other"
+        kinds[kind] += e.time_range.elapsed_us() / 1e3
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(work):
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    busy /= 1e3
+    opt = [e for e in prof.events() if e.name == "adamw_update"
+           and e.device_type == DeviceType.CPU]
+    opt_ms = sum(e.device_time_total for e in opt) / 1e3
+    summed = sum(kinds.values())
+    trusted = busy <= wall * 1e3
+    if not trusted:
+        say(f"  the profile's device work ({busy:.1f} ms) exceeds the wall "
+            f"time ({wall * 1e3:.1f} ms): idle share not measured")
+    return dict(wall_ms=wall * 1e3, device_ms=busy, summed_ms=summed,
+                idle_share=1 - busy / (wall * 1e3) if trusted else None,
+                by_kind_ms=kinds, optimizer_ms=opt_ms if opt else None,
+                n_events=len(work), left_out_ms=left_out)
+
+
+class _PlainAttention:
+    """While entered, ``flash.mha`` is the plain version on any device."""
+
+    def __enter__(self):
+        import functools
+        from repro_torch.kernels.flash_attention import ops
+        self._fn = ops.mha
+        ops.mha = functools.partial(self._fn, backend="plain")
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ops
+        ops.mha = self._fn
+
+
+def _train_full() -> dict:
+    """(b): three steps of stablelm-1.6b at full width and depth through
+    ``make_train_step``; the third under ``torch.profiler``."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+    import numpy as np
+    p = TRAIN_FULL
+    cfg = get_config(p["config"])
+    accum, tokens = p["accum_steps"], p["global_batch"] * p["seq_len"]
+    ts, _ = make_train_step(
+        cfg, ShapeCell("train_4k", p["seq_len"], p["global_batch"], "train"),
+        make_local_mesh(1, 1),
+        perf=M.PerfConfig(remat=p["remat"], accum_steps=accum),
+        opt_cfg=AdamWConfig(), dtype=torch.float32)
+    pipe = SyntheticLM(cfg.vocab, p["seq_len"], p["global_batch"],
+                       seed=p["seed"])
+    gen = torch.Generator("cuda")
+
+    def fresh():
+        params = M.init_params(cfg, gen.manual_seed(p["seed"]))
+        return params, adamw_init(params)
+
+    # step 1 with the plain attention, from the same weights
+    params, opt = fresh()
+    t0 = time.perf_counter()
+    with _PlainAttention():
+        _, _, m = ts(params, opt, pipe.microbatched(0, accum))
+        plain = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    plain["seconds"] = time.perf_counter() - t0
+    del params, opt, m
+    torch.cuda.empty_cache()
+
+    params, opt = fresh()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    first = [t.flatten()[:256].clone() for t in tree.leaves(params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, prof = [], None
+    for step in range(p["steps"]):
+        batch = pipe.microbatched(step, accum)
+        held = {}
+
+        def run():
+            held.update(ts(params, opt, batch)[2])
+            torch.cuda.synchronize()
+        reset_launches()
+        if step == p["steps"] - 1:
+            prof = _step_profile(run)
+            seconds = prof["wall_ms"] / 1e3
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            seconds = time.perf_counter() - t0
+        launches = read_launches()
+        steps.append(dict({k: float(v) for k, v in held.items()},
+                          seconds=seconds,
+                          flash_fwd=launches["flash_attention"],
+                          flash_bwd=launches["flash_attention_bwd"]))
+    peak = torch.cuda.max_memory_allocated()
+    moved = [not torch.equal(a, t.flatten()[:256])
+             for a, t in zip(first, tree.leaves(params))]
+    del params, opt, first
+    torch.cuda.empty_cache()
+
+    # remat runs each block's forward again in the backward pass
+    n_fwd = cfg.n_layers * accum * (2 if p["remat"] != "none" else 1)
+    n_bwd = cfg.n_layers * accum
+    for i, st in enumerate(steps):
+        check(np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"]),
+              f"stablelm-1.6b step {i}: loss {st['loss']}, grad_norm "
+              f"{st['grad_norm']}")
+        check((st["flash_fwd"], st["flash_bwd"]) == (n_fwd, n_bwd),
+              f"stablelm-1.6b step {i}: flash launches forward "
+              f"{st['flash_fwd']} (expected {n_fwd}), backward "
+              f"{st['flash_bwd']} (expected {n_bwd})")
+    check(all(moved), f"{moved.count(False)} of {len(moved)} leaves not "
+          "updated by three steps")
+    gap_loss = abs(steps[0]["loss"] - plain["loss"]) / abs(plain["loss"])
+    gap_gn = abs(steps[0]["grad_norm"] - plain["grad_norm"]) \
+        / abs(plain["grad_norm"])
+    check(gap_loss <= TRAIN_PLAIN_LOSS_RTOL and
+          gap_gn <= TRAIN_PLAIN_GNORM_RTOL,
+          f"stablelm-1.6b step 1, flash kernels vs plain attention: loss "
+          f"{steps[0]['loss']} vs {plain['loss']} (rel {gap_loss:.2e}), "
+          f"grad_norm {steps[0]['grad_norm']} vs {plain['grad_norm']} "
+          f"(rel {gap_gn:.2e})")
+    timed = steps[1]["seconds"]
+    out = dict(config=p, n_params=n_params, steps=steps, plain_step1=plain,
+               plain_gaps=dict(loss=gap_loss, grad_norm=gap_gn),
+               seconds_per_step=timed, tokens_per_s=tokens / timed,
+               peak_gib=peak / 2 ** 30, profile=prof,
+               expected_launches=dict(forward=n_fwd, backward=n_bwd))
+    kinds = prof["by_kind_ms"]
+    say(f"  stablelm-1.6b, {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+        f"f32 parameters, {p['global_batch']} x {p['seq_len']} tokens in "
+        f"{accum} microbatches, remat {p['remat']}: losses "
+        f"{[round(st['loss'], 6) for st in steps]}, grad norms "
+        f"{[round(st['grad_norm'], 4) for st in steps]}; step 2 "
+        f"{timed:.3f} s ({tokens / timed:.0f} tokens/s), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; flash launches a step {n_fwd} forward, "
+        f"{n_bwd} backward; step 1 vs plain attention: loss rel "
+        f"{gap_loss:.2e}, grad_norm rel {gap_gn:.2e} (plain step "
+        f"{plain['seconds']:.2f} s)")
+    idle = prof["idle_share"]
+    say(f"  profiled step 3: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['device_ms']:.1f} ms in {prof['n_events']} kernels, copies "
+        f"and sets (summed {prof['summed_ms']:.1f} ms; idle share "
+        + ("not measured" if idle is None else f"{idle:.4f}")
+        + f"): GEMMs {kinds['gemm']:.1f} ms, flash forward "
+        f"{kinds['flash_fwd']:.1f} ms, flash backward "
+        f"{kinds['flash_bwd']:.1f} ms, other {kinds['other']:.1f} ms, of "
+        "which the optimizer's "
+        + ("not measured" if prof["optimizer_ms"] is None
+           else f"{prof['optimizer_ms']:.1f} ms")
+        + "; left out (annotations, not work): "
+        + (", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+            prof["left_out_ms"].items(), key=lambda kv: -kv[1])[:4])
+           or "none"))
+    return out
+
+
+def _trainer_setup(ref: dict):
+    """(c)'s train step, weights, optimizer state and data on the card,
+    as ``chip_reference.json`` describes them."""
+    import dataclasses
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+    p = ref["loop_params"]
+    cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
+                              **ref["shape"])
+    ts, _ = make_train_step(
+        cfg, ShapeCell("t", p["seq_len"], p["global_batch"], "train"),
+        make_local_mesh(1, 1),
+        perf=M.PerfConfig(remat=p["remat"], accum_steps=p["accum_steps"]),
+        opt_cfg=AdamWConfig(lr=p["lr"], warmup_steps=p["warmup_steps"],
+                            total_steps=p["total_steps"]),
+        dtype=torch.float32)
+    params = interop.lm_params_from_seed(cfg, p["weight_seed"])
+    pipe = SyntheticLM(cfg.vocab, p["seq_len"], p["global_batch"],
+                       seed=p["data_seed"])
+    return ts, params, adamw_init(params), pipe
+
+
+def _trainer_restart(ref: dict) -> dict:
+    """(c): ``train_loop`` uninterrupted, and stopped after 6 steps then
+    restarted from new weights and moments (as a killed run restarts):
+    the same losses bit for bit, and JAX's within TRAIN_REF_RTOL."""
+    import dataclasses
+    import shutil
+    from repro_torch.runtime import TrainerConfig, train_loop
+    p = ref["loop_params"]
+    ck = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    tcfg = TrainerConfig(steps=p["steps"], ckpt_every=p["ckpt_every"],
+                         ckpt_dir=str(ck / "full"))
+    reset_launches()
+    full = train_loop(*_trainer_setup(ref), tcfg)
+    launches = read_launches()
+    ts, params, opt, pipe = _trainer_setup(ref)
+    tcfg = dataclasses.replace(tcfg, ckpt_dir=str(ck / "restart"))
+    first = train_loop(ts, params, opt, pipe,
+                       dataclasses.replace(tcfg, steps=p["stop_after"]))
+    del ts, params, opt, pipe
+    # the restart's tensors are new: its trajectory comes from the
+    # checkpoint alone
+    resumed = train_loop(*_trainer_setup(ref), tcfg)
+    shutil.rmtree(ck, ignore_errors=True)
+    losses = [h["loss"] for h in full["history"]]
+    again = {h["step"]: h["loss"]
+             for h in first["history"] + resumed["history"]}
+    start = resumed["history"][0]["step"]
+    check(sorted(again) == list(range(p["steps"])) and
+          all(again[i] == losses[i] for i in range(p["steps"])),
+          f"trainer restart at step {start}: losses {again} differ from "
+          f"the uninterrupted run's {losses}")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref["loop"]["losses"])]
+    check(len(losses) == len(ref["loop"]["losses"]) and
+          max(gaps) <= TRAIN_REF_RTOL,
+          f"trainer losses {losses} vs JAX {ref['loop']['losses']} (max rel "
+          f"{max(gaps):.2e}, tol {TRAIN_REF_RTOL:g})")
+    check_launched(launches, ("flash_attention", "flash_attention_bwd"),
+                   "the trainer")
+    say(f"  train_loop, test_runtime size, {p['steps']} steps: losses "
+        f"{[round(x, 6) for x in losses]}, max rel to JAX {max(gaps):.2e}; "
+        f"stopped after {p['stop_after']}, resumed at step {start}: bit for "
+        f"bit")
+    return dict(losses=losses, max_rel_to_jax=max(gaps), resumed_at=start,
+                launches={k: v for k, v in launches.items() if v})
+
+
+def _grad_batch(cfg, p: dict) -> dict:
+    """(d)'s batch, made as ``tools/chip_reference.py``'s ``grad_batch``
+    makes it, on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(p["data_seed"])
+    B, S = p["batch"], p["seq_len"]
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "encdec":
+        out["audio_embeds"] = rng.normal(
+            size=(B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.n_prefix_embeds:
+        out["prefix_embeds"] = rng.normal(
+            size=(B, cfg.n_prefix_embeds, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).cuda() for k, v in out.items()}
+
+
+def _reduced_grads(ref: dict) -> dict:
+    """(d): one ``loss_fn`` gradient of every reduced config on the card
+    against JAX's loss, nll, aux and gradient norm."""
+    import dataclasses
+    import torch
+    from repro_torch import interop, tree
+    from repro_torch import configs as tcfg
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import f32_matmul
+    from repro_torch.optim.adamw import global_norm
+    p = ref["grad_params"]
+    out = {}
+    for name, want in sorted(ref["grads"].items()):
+        cfg = tcfg.get_config(name).reduced()
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=p["capacity_factor"]))
+        params = interop.lm_params_from_seed(cfg, p["weight_seed"])
+        leaves = [t.requires_grad_(True) for t in tree.leaves(params)]
+        reset_launches()
+        with f32_matmul():
+            loss, met = M.loss_fn(params, _grad_batch(cfg, p), cfg,
+                                  perf=M.PerfConfig(remat="none"))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        launches = read_launches()
+        got = dict(loss=float(loss.detach()),
+                   nll=float(met["nll"].detach()),
+                   aux=float(met["aux"].detach()),
+                   grad_norm=float(global_norm(
+                       [g for g in grads if g is not None])))
+        gaps = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                for k in got if not (want[k] == 0 and abs(got[k]) <= 1e-7)}
+        check(max(gaps.values()) <= TRAIN_REF_RTOL,
+              f"{name}: loss_fn and its gradient norm {got} vs JAX {want}")
+        if cfg.family in FLASH_FAMILIES:
+            check_launched(launches, ("flash_attention",
+                                      "flash_attention_bwd"), name)
+        out[name] = dict(got, gaps=gaps,
+                         flash_bwd=launches["flash_attention_bwd"])
+    say("  one gradient of each reduced config vs JAX: max rel "
+        + ", ".join(f"{n} {max(v['gaps'].values()):.1e}"
+                    for n, v in out.items())
+        + "; flash backward launches "
+        + str({n: v["flash_bwd"] for n, v in out.items() if v["flash_bwd"]}))
+    return out
+
+
+@phase("30 training")
+def training(results):
+    """(a) and (b); (c) and (d) run in a process of their own
+    (:func:`start_training_lane`), held by :func:`training_lane`."""
+    import torch
+    torch.cuda.empty_cache()
+    out = {"bwd": {}}
+    for label, case in FLASH_BWD_CASES.items():
+        out["bwd"][label] = _flash_bwd_case(label, case)
+    torch.cuda.empty_cache()
+    out["full"] = _train_full()
+    torch.cuda.empty_cache()
+    results["training"] = out
+    results["flash_bwd_stablelm_train"] = out["bwd"]["stablelm_train"]
+    return dict(full=out["full"]["steps"][0])
+
+
+def _training_lane_worker():
+    """Phase 30 (c) and (d) in a process of its own: their results, the
+    lines they said, their seconds."""
+    import contextlib
+    import io
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    ref = _chip_reference()["training"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = _trainer_restart(ref)
+        reduced = _reduced_grads(ref)
+    return trainer, reduced, LINES, time.perf_counter() - t0
+
+
+def start_training_lane() -> _Workers:
+    """Phase 30 (c) and (d) started in a spawned process on the card,
+    beside phase 26 and the quick lane: small models, host-bound, and
+    timed nowhere."""
+    return _Workers(_training_lane_worker, [()])
+
+
+@phase("30 training (c)-(d), in a process of its own")
+def training_lane(results, lane: _Workers):
+    t_wait = time.perf_counter()
+    (trainer, reduced, lines, seconds), = lane.results()
+    waited = time.perf_counter() - t_wait
+    for line in lines:
+        say(line)
+    say(f"  (c) and (d): {seconds:.2f} s in their process, started with "
+        f"phase 26; {waited:.2f} s of it waited for here")
+    results["training"].update(trainer=trainer, reduced=reduced,
+                               lane_s=seconds, lane_waited_s=waited)
+    return dict(trainer=trainer["launches"],
+                reduced={k: v["flash_bwd"] for k, v in reduced.items()
+                         if v["flash_bwd"]})
+
+
 def _kernel_row(name, source, replaces, launches, r, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, **{k: r[k] for k in (
@@ -4666,14 +5245,19 @@ def main() -> int:
     deep_launches = deep_stacks(results)
     lane_launches = lane_sharding(results)
     family_launches = model_families(results)
-    # the last two phases time no kernel: phase 29's quick lane runs in
-    # processes of its own beside phase 26 and phase 29's smoke scenario
+    train_launches = training(results)
+    # the last two phases time no kernel: phase 30's (c) and (d), and
+    # phase 29's quick lane, run in processes of their own beside phase
+    # 26 and phase 29's smoke scenario
+    train_lane = start_training_lane()
     lane = start_quick_lane()
     try:
         shard_launches = sharded_paths(results)
+        train_launches.update(training_lane(results, train_lane))
         serving_launches = serving_path(results, lane)
     finally:
         lane.stop()
+        train_lane.stop()
     new_paths = {"cosim_22": cosim_launches, "coarsened_replay_23":
                  coarsen_launches, "sensor_faults_24": fault_launches,
                  **{f"deep_25:{k}": v for k, v in deep_launches.items()},
@@ -4785,7 +5369,27 @@ def main() -> int:
                         "reference_check_prefill":
                             ref_launches["flash_attention"],
                         **{f"families_28:{k}": v["flash_attention"]
-                           for k, v in family_launches.items()}}),
+                           for k, v in family_launches.items()},
+                        "training_30:stablelm_step":
+                            train_launches["full"]["flash_fwd"],
+                        "training_30:trainer":
+                            train_launches["trainer"]["flash_attention"]}),
+        _kernel_row("flash_attention_bwd.mha_backward",
+                    f"{src}/flash_attention/csrc/flash_attention_bwd.cu",
+                    "src/repro/models/attention.py:77",
+                    sum(st["flash_bwd"]
+                        for st in results["training"]["full"]["steps"]),
+                    results["flash_bwd_stablelm_train"],
+                    device_ms=results["training"]["full"]["profile"][
+                        "by_kind_ms"]["flash_bwd"]
+                    / train_launches["full"]["flash_bwd"],
+                    launches_by_path={
+                        "training_30:stablelm_step":
+                            train_launches["full"]["flash_bwd"],
+                        "training_30:trainer":
+                            train_launches["trainer"]["flash_attention_bwd"],
+                        **{f"training_30:reduced:{k}": v for k, v in
+                           train_launches["reduced"].items()}}),
     ]
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

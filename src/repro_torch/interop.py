@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import tree as tree_mod
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import APState, PassSchedule, schedule_tensors
 from repro_torch.kernels.ap_megakernel.ref import OpGroup
@@ -317,3 +318,24 @@ def lm_params_from_seed(cfg: ArchConfig, seed: int, device="cuda") -> dict:
     """The port's params for :func:`lm_params_seed_numpy`'s weights: the
     same numbers the reference gets from the same call's arrays."""
     return lm_params_from_reference(lm_params_seed_numpy(cfg, seed), device)
+
+
+def opt_state_from_reference(opt_np: dict, device="cuda") -> dict:
+    """The reference's AdamW state ``{"m", "v", "step"}`` as NumPy arrays
+    -> the port's on ``device``: ``m`` and ``v`` through
+    :func:`lm_params_from_reference` in their own dtype (bfloat16 moments
+    pass through float32, exactly), ``step`` an int32 scalar."""
+    dev = resolve_device(device)
+
+    def moments(tree):
+        bf16 = any(str(np.asarray(a).dtype) == "bfloat16"
+                   for a in tree_mod.leaves(tree))
+        wide = tree_mod.map_(lambda a: np.asarray(a, np.float32), tree)
+        out = lm_params_from_reference(wide, dev)
+        if bf16:
+            out = tree_mod.map_(lambda t: t.to(torch.bfloat16), out)
+        return out
+
+    return {"m": moments(opt_np["m"]), "v": moments(opt_np["v"]),
+            "step": torch.tensor(int(np.asarray(opt_np["step"])),
+                                 dtype=torch.int32, device=dev)}

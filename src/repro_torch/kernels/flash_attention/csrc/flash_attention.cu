@@ -135,6 +135,16 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// The row's log-sum-exp of the scaled scores, m * scale + log(l), into
+// lse [B, Hq, Sq] (what the backward kernel recomputes P from).  A row
+// with no visible key gets +inf, so that exp(s * scale - lse) is 0 there.
+__device__ __forceinline__ void store_lse(float* lse, int b, int h, int hq,
+                                          int sq, int r, float m, float l,
+                                          float scale) {
+  lse[((long long)b * hq + h) * sq + r] =
+      l == 0.f ? __builtin_huge_valf() : m * scale + logf(l);
+}
+
 // Which key tiles the CTA's rows [q0, q0 + BQ) can see, and whether a
 // tile is seen in full by every row (no per-element mask needed).
 struct Span {
@@ -275,8 +285,8 @@ template <int D>
 __global__ void __launch_bounds__(F32Cfg<D>::NT, 1)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
-              int n_bh, int n_qb, int sq, int sk, int hq, int hkv,
-              int causal, int window, float scale) {
+              float* __restrict__ lse, int n_bh, int n_qb, int sq, int sk,
+              int hq, int hkv, int causal, int window, float scale) {
   using C = F32Cfg<D>;
   constexpr int ND = D / 8;       // 8-column groups of the output
   extern __shared__ __align__(16) float smem[];
@@ -393,6 +403,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int r = row + 8 * i;
     const float li = quad_sum(l[i]);
     if (r >= sq) continue;
+    if (lse != nullptr && t == 0)
+      store_lse(lse, b, h, hq, sq, r, m[i], li, scale);
     const float denom = li == 0.f ? 1.f : li;
     float* op = out + (((long long)b * sq + r) * hq + h) * D + 2 * t;
 #pragma unroll
@@ -720,8 +732,8 @@ __global__ void __launch_bounds__(Bf16Cfg<D>::NT, 1)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
-               int n_bh, int n_qb, int sq, int sk, int hq, int hkv,
-               int causal, int window, float scale) {
+               float* __restrict__ lse, int n_bh, int n_qb, int sq, int sk,
+               int hq, int hkv, int causal, int window, float scale) {
   using C = Bf16Cfg<D>;
   constexpr int CH = D / 8;                   // 16-byte chunks a row
   extern __shared__ __align__(128) unsigned char smem_b[];
@@ -858,6 +870,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     const int r = c.row + 8 * i;
     const float li = quad_sum(l[i]);
     if (r >= sq) continue;
+    if (lse != nullptr && t == 0)
+      store_lse(lse, b, h, hq, sq, r, m[i], li, scale);
     const float denom = li == 0.f ? 1.f : li;
     float* op = out + (((long long)b * sq + r) * hq + h) * D + 2 * t;
 #pragma unroll
@@ -870,14 +884,14 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 // ---------------------------------------------------------------------------
 
 template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, float* out, int B,
-           int sq, int sk, int hq, int hkv, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, float* out,
+           float* lse, int B, int sq, int sk, int hq, int hkv, int causal,
+           int window, float scale, cudaStream_t stream) {
   constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int threads = F32 ? F32Cfg<D>::NT : Bf16Cfg<D>::NT;
   constexpr int bytes = F32 ? F32Cfg<D>::BYTES : Bf16Cfg<D>::BYTES;
-  void (*kern)(const T*, const T*, const T*, float*, int, int, int, int, int,
-               int, int, int, float);
+  void (*kern)(const T*, const T*, const T*, float*, float*, int, int, int,
+               int, int, int, int, int, float);
   if constexpr (F32) kern = flash_fwd_f32<D>;
   else kern = flash_fwd_bf16<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -889,19 +903,19 @@ int launch(const void* q, const void* k, const void* v, float* out, int B,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kern<<<(unsigned)blocks, threads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out, n_bh, n_qb, sq, sk, hq, hkv, causal,
-      window, scale);
+      static_cast<const T*>(v), out, lse, n_bh, n_qb, sq, sk, hq, hkv,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int dh, const void* q, const void* k, const void* v,
-             float* out, int B, int sq, int sk, int hq, int hkv, int causal,
-             int window, float scale, cudaStream_t stream) {
+             float* out, float* lse, int B, int sq, int sk, int hq, int hkv,
+             int causal, int window, float scale, cudaStream_t stream) {
 #define FLASH_CASE(DH)                                                    \
   case DH:                                                                \
-    return launch<DH, T>(q, k, v, out, B, sq, sk, hq, hkv, causal, window, \
-                         scale, stream);
+    return launch<DH, T>(q, k, v, out, lse, B, sq, sk, hq, hkv, causal,  \
+                         window, scale, stream);
   switch (dh) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -916,20 +930,31 @@ int dispatch(int dh, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window < 0: no window.  Returns the
-// launch's cudaGetLastError().
-extern "C" int flash_mha(const void* q, const void* k, const void* v,
-                         float* out, int B, int sq, int sk, int hq, int hkv,
-                         int dh, int dtype, int causal, int window,
-                         float scale, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16.  window < 0: no window.  lse, where
+// not null, receives each row's log-sum-exp [B, Hq, Sq] (float32), for the
+// backward kernel (flash_attention_bwd.cu).  Returns the launch's
+// cudaGetLastError().
+extern "C" int flash_mha_lse(const void* q, const void* k, const void* v,
+                             float* out, float* lse, int B, int sq, int sk,
+                             int hq, int hkv, int dh, int dtype, int causal,
+                             int window, float scale, void* stream) {
   if (B <= 0 || sq <= 0 || sk <= 0 || hkv <= 0 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(dh, q, k, v, out, B, sq, sk, hq, hkv, causal,
+    return dispatch<float>(dh, q, k, v, out, lse, B, sq, sk, hq, hkv, causal,
                            window, scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(dh, q, k, v, out, B, sq, sk, hq, hkv,
+    return dispatch<__nv_bfloat16>(dh, q, k, v, out, lse, B, sq, sk, hq, hkv,
                                    causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The forward alone, as flash_mha_lse with no lse.
+extern "C" int flash_mha(const void* q, const void* k, const void* v,
+                         float* out, int B, int sq, int sk, int hq, int hkv,
+                         int dh, int dtype, int causal, int window,
+                         float scale, void* stream) {
+  return flash_mha_lse(q, k, v, out, nullptr, B, sq, sk, hq, hkv, dh, dtype,
+                       causal, window, scale, stream);
 }

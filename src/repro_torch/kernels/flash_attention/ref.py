@@ -1,4 +1,5 @@
-"""Plain PyTorch attention: the flash kernel's oracle and CPU version.
+"""Plain PyTorch attention and its gradient: the flash kernels' oracle
+and CPU version.
 
 Layout convention: q [B, Sq, Hq, dh], k/v [B, Sk, Hkv, dh] with
 Hq % Hkv == 0 (GQA).  Query positions are the LAST Sq positions of the
@@ -55,3 +56,16 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.where(any_valid[None, None, :, None], probs, 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
     return out.to(q.dtype)
+
+
+def mha_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 d_out: torch.Tensor, *, causal: bool = True,
+                 window: int | None = None, scale: float | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`mha` at (q, k, v) for the output gradient
+    ``d_out``, by autograd through the plain version: the backward
+    kernel's oracle."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = mha(*leaves, causal=causal, window=window, scale=scale)
+        return torch.autograd.grad(out, leaves, d_out.to(out.dtype))

@@ -1,2 +1,3 @@
-"""Launcher: roofline terms and parameter counts (``roofline``), and the
-shape-only parameter tree (``steps.params_sds``)."""
+"""Launcher: roofline terms and parameter counts (``roofline``), the
+shape-only parameter tree and the train step (``steps``), and the
+one-device mesh (``mesh``)."""

@@ -13,18 +13,24 @@ Families, as in the reference's ``models/model.py``:
 Each layer stack is a Python loop over per-layer parameter dicts
 (``params["layers"]``, ``params["dense_layers"]`` and
 ``params["enc_layers"]`` are lists; ``params["shared_block"]`` is one
-dict), forward only: no remat, no gradient, and no TF32 in the float32
-matrix products.  Full-sequence GQA attention (dense, the hybrid's shared
-block, whisper's encoder, decoder and cross attention) goes through the
-flash kernel; MLA's attention stays plain PyTorch (``models/mla.py``).
+dict), with no TF32 in the float32 matrix products.  ``forward`` and
+``encode`` follow the caller's grad mode: the serving entry points run
+them under ``torch.no_grad()``, and ``loss_fn`` differentiates them, each
+block wrapped in ``torch.utils.checkpoint`` as ``PerfConfig.remat`` asks
+(the reference's ``jax.checkpoint``).  Full-sequence GQA attention (dense,
+the hybrid's shared block, whisper's encoder, decoder and cross
+attention) goes through the flash kernel, whose gradient is the backward
+kernel; MLA's attention stays plain PyTorch (``models/mla.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops as flash
@@ -41,13 +47,55 @@ from repro_torch.models.layers import (NOSHARD, Sharder, dense_init,
 
 @dataclasses.dataclass(frozen=True)
 class PerfConfig:
-    """The reference's per-cell knobs that the forward and serving paths
-    read."""
+    """The reference's per-cell knobs, in its order.  ``scan_layers`` and
+    ``parallelism`` are accepted and change nothing on one card (the port
+    loops over layers in Python, and shards nothing until ``parallel/``'s
+    model half is ported)."""
+    remat: str = "full"                # none | full | dots | dots_nb
     attn_chunk: Optional[int] = None   # kv-chunked attention block size
     #                                    (MLA's online softmax; the flash
     #                                    kernel streams K/V anyway)
+    accum_steps: int = 1               # gradient accumulation microbatches
+    scan_layers: bool = True
+    parallelism: str = "2d"
     moe_groups: int = 1                # GShard dispatch groups
     kv_quant: bool = False             # int8 KV cache (KIVI-style)
+    opt_moments: str = "f32"           # bf16 halves optimizer-state memory
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots`` policies: keep matrix products' outputs, recompute the
+    rest."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.bmm.default, aten.addmm.default):
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` with its activations recomputed in the backward pass, as the
+    reference's ``_remat``: ``none`` keeps them all; ``full`` keeps only
+    the block's inputs; ``dots`` and ``dots_nb`` also keep the matrix
+    products' outputs (one policy here: a batched product is a product).
+    Outside a grad-recording region it is ``fn`` itself.  The results do
+    not depend on the policy."""
+    if policy not in ("none", "full", "dots", "dots_nb"):
+        raise ValueError(policy)
+    if policy == "none":
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        extra = {}
+        if policy != "full":
+            extra["context_fn"] = functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts,
+                _save_dots)
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                           **kwargs, **extra)
+    return run
 
 
 def _norm(x, p, cfg: ArchConfig):
@@ -159,7 +207,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 def embed_tokens(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """Token embeddings, the first ``n_prefix_embeds`` positions replaced
     by the stub frontend's ``prefix_embeds`` where the batch has them."""
-    x = params["embed"][batch["tokens"]]
+    # embedding(): its gradient on the card sums each row's repeats in a
+    # fixed order (a training step must repeat bit for bit)
+    x = torch.nn.functional.embedding(batch["tokens"], params["embed"])
     if cfg.n_prefix_embeds and "prefix_embeds" in batch:
         pe = batch["prefix_embeds"].to(x.dtype)
         x = torch.cat([pe, x[:, cfg.n_prefix_embeds:]], dim=1)
@@ -206,7 +256,6 @@ def _whisper_sinusoid(S: int, d: int, dtype, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 
-@torch.no_grad()
 @f32_matmul()
 def encode(params, audio_embeds, cfg: ArchConfig, shd: Sharder = NOSHARD,
            perf: PerfConfig = PerfConfig()) -> torch.Tensor:
@@ -216,11 +265,15 @@ def encode(params, audio_embeds, cfg: ArchConfig, shd: Sharder = NOSHARD,
     x = audio_embeds + _whisper_sinusoid(F, d, audio_embeds.dtype,
                                          audio_embeds.device)
     pos = positions_for(B, F, x.device)
-    for lp in params["enc_layers"]:
+
+    def blk(lp, x):
         h = attn_mod.attn_train(lp["attn"], _norm(x, lp["ln1"], cfg), pos,
                                 cfg, shd, causal=False)
         x = x + h
-        x = x + gelu_mlp(lp["mlp"], _norm(x, lp["ln2"], cfg), shd)
+        return x + gelu_mlp(lp["mlp"], _norm(x, lp["ln2"], cfg), shd)
+    blk = _remat(blk, perf.remat)
+    for lp in params["enc_layers"]:
+        x = blk(lp, x)
     return _norm(x, params["enc_norm"], cfg)
 
 
@@ -262,13 +315,16 @@ def _hybrid_forward(params, x, positions, cfg, shd, perf):
     per = cfg.attn_every
     n_seg = n_segments(cfg)
     layers = params["layers"]
+    shared = _remat(functools.partial(
+        _dense_block, positions=positions, cfg=cfg, shd=shd,
+        chunk=perf.attn_chunk), perf.remat)
+    ssm = _remat(functools.partial(_ssm_block, cfg=cfg, shd=shd), perf.remat)
     for seg in range(n_seg):
-        x = _dense_block(params["shared_block"], x, positions, cfg, shd,
-                         perf.attn_chunk)
+        x = shared(params["shared_block"], x)
         for lp in layers[seg * per:(seg + 1) * per]:
-            x = _ssm_block(lp, x, cfg, shd)
+            x = ssm(lp, x)
     for lp in layers[n_seg * per:]:
-        x = _ssm_block(lp, x, cfg, shd)
+        x = ssm(lp, x)
     return x
 
 
@@ -276,7 +332,6 @@ def _hybrid_forward(params, x, positions, cfg, shd, perf):
 # forward: tokens -> logits, aux
 # ===========================================================================
 
-@torch.no_grad()
 @f32_matmul()
 def forward(params: dict, batch: dict, cfg: ArchConfig,
             shd: Sharder = NOSHARD, perf: PerfConfig = PerfConfig()
@@ -290,30 +345,58 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     chunk = perf.attn_chunk
 
+    def remat(fn, **kw):
+        return _remat(functools.partial(fn, cfg=cfg, shd=shd, **kw),
+                      perf.remat)
+
     if cfg.family == "dense":
+        blk = remat(_dense_block, positions=positions, chunk=chunk)
         for lp in params["layers"]:
-            x = _dense_block(lp, x, positions, cfg, shd, chunk)
+            x = blk(lp, x)
     elif cfg.family == "moe":
+        blk = remat(_mla_dense_block, positions=positions, chunk=chunk)
         for lp in params["dense_layers"]:
-            x = _mla_dense_block(lp, x, positions, cfg, shd, chunk)
+            x = blk(lp, x)
+        blk = remat(_moe_block, positions=positions, chunk=chunk,
+                    groups=perf.moe_groups)
         for lp in params["layers"]:
-            x, a = _moe_block(lp, x, positions, cfg, shd, chunk,
-                              perf.moe_groups)
+            x, a = blk(lp, x)
             aux = aux + a
     elif cfg.family == "ssm":
+        blk = remat(_ssm_block)
         for lp in params["layers"]:
-            x = _ssm_block(lp, x, cfg, shd)
+            x = blk(lp, x)
     elif cfg.family == "hybrid":
         x = _hybrid_forward(params, x, positions, cfg, shd, perf)
     elif cfg.family == "encdec":
         enc_out = encode(params, batch["audio_embeds"], cfg, shd, perf)
         enc_pos = positions_for(B, enc_out.shape[1], x.device)
+        blk = remat(_dec_block, enc_out=enc_out, positions=positions,
+                    enc_pos=enc_pos, chunk=chunk)
         for lp in params["layers"]:
-            x = _dec_block(lp, x, enc_out, positions, enc_pos, cfg, shd,
-                           chunk)
+            x = blk(lp, x)
     else:
         raise ValueError(cfg.family)
 
     x = _norm(x, params["final_norm"], cfg)
     logits = shd.btv(x @ params["lm_head"])
     return logits, aux
+
+
+# ===========================================================================
+# loss
+# ===========================================================================
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig,
+            shd: Sharder = NOSHARD, perf: PerfConfig = PerfConfig()
+            ) -> tuple[torch.Tensor, dict]:
+    """(loss, {"nll", "aux"}): the mean next-token negative log-likelihood
+    of ``batch["labels"]`` from float32 logits (logsumexp minus the gold
+    logit), plus the MoE aux loss, as the reference's ``loss_fn``."""
+    logits, aux = forward(params, batch, cfg, shd, perf)
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
+    nll = (lse - gold).mean()
+    loss = nll + aux
+    return loss, {"nll": nll, "aux": aux}

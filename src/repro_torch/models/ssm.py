@@ -98,12 +98,22 @@ def _scan_chunk(decay: torch.Tensor, inp: torch.Tensor):
     from a zero state: returns (cumulative decay, cumulative input), each
     [B, ck, D, N].  Shifted Hillis-Steele: at offset o every t >= o
     combines with t - o, ceil(log2(ck)) steps.  Works in place on its
-    arguments."""
+    arguments, but where autograd records (a training forward): there each
+    step builds new tensors of the same values, since autograd cannot
+    differentiate a slice written from an overlapping slice of itself."""
     ck = decay.shape[1]
     off = 1
+    grad = torch.is_grad_enabled() and (decay.requires_grad
+                                        or inp.requires_grad)
     while off < ck:
-        inp[:, off:] += decay[:, off:] * inp[:, :-off]
-        decay[:, off:] = decay[:, off:] * decay[:, :-off]
+        if grad:
+            inp = torch.cat([inp[:, :off], inp[:, off:]
+                             + decay[:, off:] * inp[:, :-off]], 1)
+            decay = torch.cat([decay[:, :off],
+                               decay[:, off:] * decay[:, :-off]], 1)
+        else:
+            inp[:, off:] += decay[:, off:] * inp[:, :-off]
+            decay[:, off:] = decay[:, off:] * decay[:, :-off]
         off *= 2
     return decay, inp
 

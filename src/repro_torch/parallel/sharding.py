@@ -23,6 +23,9 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.tree import leaves as _leaves
+from repro_torch.tree import map_ as _map
+
 
 def local_devices(device="cuda") -> tuple[torch.device, ...]:
     """The local devices of ``device`` 's type: every card for a CUDA
@@ -62,22 +65,6 @@ def ap_mesh(n_shards: int | None = None, *,
     word-lane axis, responder counts summed over the shards.
     Validation matches :func:`sweep_mesh`: over-subscription raises."""
     return _mesh(n_shards, device)
-
-
-def _leaves(tree: Any) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
-def _map(fn: Callable, tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 def pad_case_batch(batch: Any, n_shards: int) -> tuple[Any, int]:

@@ -898,6 +898,101 @@ def test_flash_kernel_matches_plain(cuda, B, sq, sk, hq, hkv, dh, window,
     assert torch.isfinite(got).all()
 
 
+#: the backward kernel against autograd through the plain version, as a
+#: normwise relative gap ||got - want|| / ||want|| of each of dq, dk, dv:
+#: float32 both (the kernel sums in another order and takes exp of
+#: s * scale - lse where the plain softmax divides), so about 1e-6 is
+#: expected; bfloat16 inputs give the plain version float32 gradients of
+#: the same bf16 values while the kernel rounds its own to bf16 (2^-9
+#: relative each), and its forward output, which D = rowsum(dO O) reads,
+#: is the float32 one
+FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _flash_grads(q, k, v, d_out, **mask):
+    """(out, dq, dk, dv) through ``fa_ops.mha`` on the card."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fa_ops.mha(*leaves, **mask)
+    return (out, *torch.autograd.grad(out, leaves, d_out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,sq,sk,hq,hkv,dh,causal,window", [
+    (1, 256, 256, 8, 8, 64, True, None),      # causal MHA
+    (2, 256, 256, 8, 2, 120, True, 64),       # GQA, dh 120, window
+    (2, 224, 1500, 8, 8, 64, False, None),    # cross attention, Sq != Sk
+    (1, 100, 130, 4, 2, 32, True, None),      # ragged, causal offset 30
+    (1, 8, 8, 2, 2, 16, True, 0),             # every row fully masked
+    (1, 100, 64, 4, 2, 64, True, None),       # Sq > Sk: 36 rows see none
+    (1, 70, 70, 4, 4, 128, True, 8),          # a window of 8 keys
+    (2, 1, 96, 4, 4, 32, False, None),        # one query row
+])
+def test_flash_backward_matches_plain_autograd(cuda, B, sq, sk, hq, hkv, dh,
+                                               causal, window, dtype):
+    q, k, v = _flash_inputs((B, sq, hq, dh), (B, sk, hkv, dh), dtype,
+                            sq + sk + dh, cuda)
+    d_out = _flash_inputs((B, sq, hq, dh), (1,), dtype, sq + 1, cuda)[0]
+    mask = dict(causal=causal, window=window)
+    before = (fa_ops.mha.launches, fa_ops.mha_backward.launches)
+    out, *got = _flash_grads(q, k, v, d_out, **mask)
+    assert (fa_ops.mha.launches, fa_ops.mha_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = fa_ops._ref.mha_backward(q.float(), k.float(), v.float(),
+                                    d_out.float(), **mask)
+    for name, g, w, x in zip("qkv", got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape, name
+        assert torch.isfinite(g).all(), name
+        if w.norm() == 0:
+            assert g.float().abs().max() == 0, name
+        else:
+            assert _rel(g, w) <= FLASH_BWD_TOL[dtype], (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(cuda, dtype):
+    """No atomics: two runs give the same bits (the trainer's restart
+    contract needs them)."""
+    q, k, v = _flash_inputs((2, 300, 8, 64), (2, 300, 2, 64), dtype, 5, cuda)
+    d_out = _flash_inputs((2, 300, 8, 64), (1,), dtype, 6, cuda)[0]
+    a = _flash_grads(q, k, v, d_out, causal=True, window=100)
+    b = _flash_grads(q, k, v, d_out, causal=True, window=100)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_gradients_reach_the_projections(cuda):
+    """Through ``mha`` on a CUDA tensor every one of q.grad, k.grad and
+    v.grad is set and non-zero: the kernel's output carries a grad_fn."""
+    q, k, v = (t.requires_grad_(True) for t in _flash_inputs(
+        (1, 128, 4, 64), (1, 128, 2, 64), torch.float32, 7, cuda))
+    out = fa_ops.mha(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    for t in (q, k, v):
+        assert t.grad is not None and t.grad.abs().max() > 0
+
+
+def test_flash_forward_lse_matches_plain(cuda):
+    """The forward kernel's row log-sum-exp: the plain logsumexp of the
+    scaled, masked scores, and +inf on a row with no visible key."""
+    q, k, v = _flash_inputs((1, 100, 4, 64), (1, 130, 2, 64),
+                            torch.float32, 8, cuda)
+    _, _, lse = fa_ops._forward(q, k, v, True, 40, 64 ** -0.5, True)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(2, 2)) \
+        * 64 ** -0.5
+    mask = fa_ops._ref.attention_mask(100, 130, causal=True, window=40,
+                                      device=q.device)
+    want = torch.logsumexp(torch.where(mask, s, -torch.inf), -1)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
+    _, _, lse0 = fa_ops._forward(q, k, v, True, 0, 64 ** -0.5, True)
+    assert torch.isinf(lse0).all() and (lse0 > 0).all()
+
+
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 8, 4, 40), device=cuda)
     with pytest.raises(ValueError, match="head dim"):

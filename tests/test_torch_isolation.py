@@ -21,9 +21,17 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 sys.exit(1 if bad else 0)
 """
+
+#: the training slice's modules, each imported by the walk above
+TRAINING_MODULES = (
+    "repro_torch.tree", "repro_torch.optim.adamw",
+    "repro_torch.optim.compress", "repro_torch.data.pipeline",
+    "repro_torch.checkpoint.manager", "repro_torch.runtime.trainer",
+    "repro_torch.launch.steps", "repro_torch.launch.mesh",
+    "repro_torch.train_lm")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -32,6 +40,9 @@ def test_port_imports_neither_jax_nor_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
+    names = set(proc.stdout.split("]", 1)[1].split())
+    assert set(TRAINING_MODULES) <= names, \
+        sorted(set(TRAINING_MODULES) - names)
     # every module of the port was imported, the configs, models and
     # flash-attention modules, obs, the policy family, the sweep and the
     # sensor-fault models and guard included
@@ -148,3 +159,46 @@ def _tensors(tree):
             yield from _tensors(v)
     else:
         yield tree
+
+
+def test_training_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The train step, its one-device mesh and ``train_lm`` default to the
+    card and raise without one; with ``device="cpu"`` they run."""
+    import dataclasses
+
+    from repro_torch import train_lm
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_train_step
+    cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
+                              n_layers=1)
+    cell = ShapeCell("t", 8, 2, "train")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_local_mesh(1, 1)
+    mesh = make_local_mesh(1, 1, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_train_step(cfg, cell, mesh)
+    with pytest.raises(NotImplementedError):
+        make_local_mesh(2, 1, device="cpu")
+    args = ["--steps", "2", "--width", "64", "--layers", "1", "--batch",
+            "2", "--seq", "8", "--vocab", "256", "--ckpt-dir",
+            str(tmp_path / "ck")]
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_lm.main(args)
+    out = train_lm.main(args + ["--device", "cpu"])
+    assert [h["step"] for h in out["history"]] == [0, 1]
+
+
+def test_flash_backward_kernel_has_no_cpu_path():
+    """``mha_backward`` is the hand-written kernel's wrapper alone: on CPU
+    tensors it raises (autograd differentiates the plain ``ref.mha``
+    there), so no training step can reach a plain stand-in through it."""
+    from repro_torch.kernels.flash_attention import ops
+    q = torch.zeros(1, 4, 2, 16)
+    k = torch.zeros(1, 4, 1, 16)
+    lse = torch.zeros(1, 2, 4)
+    before = ops.mha_backward.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.mha_backward(q, k, k, q, lse, q)
+    assert ops.mha_backward.launches == before

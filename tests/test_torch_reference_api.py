@@ -579,3 +579,100 @@ def test_run_serving_cosim_reference_positional_arguments():
     assert (got.n_coarse, got.mean_qps) == (ref.n_coarse, ref.mean_qps)
     np.testing.assert_array_equal(got.durations_s, ref.durations_s)
     np.testing.assert_allclose(got.stack.peak_C, ref.stack.peak_C, atol=0.1)
+
+
+def _train_cfgs():
+    import dataclasses
+    from repro.configs import get_config as jget
+    from repro_torch.configs import get_config as tget
+    shape = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2, d_ff=128,
+                 vocab=512, d_head=32)
+    return (dataclasses.replace(jget("stablelm-1.6b").reduced(), **shape),
+            dataclasses.replace(tget("stablelm-1.6b").reduced(), **shape))
+
+
+def test_training_entry_points_take_reference_arguments(tmp_path):
+    """``loss_fn(params, batch, cfg, shd, perf)``, ``adamw_update(params,
+    grads, state, cfg)``, ``make_train_step(cfg, cell, mesh, perf=,
+    opt_cfg=, multi_pod=, dtype=)``, ``train_loop(train_step, params, opt,
+    pipe, tcfg, accum, extras_fn, hook)`` and ``CheckpointManager(dir,
+    keep, async_save)`` with the reference's arguments in its positions
+    (``device`` by keyword): the reference's losses within 1e-5."""
+    import jax
+    from jax.sharding import AxisType
+
+    from repro.configs.base import ShapeCell as JCell
+    from repro.data import SyntheticLM as JPipe
+    from repro.launch.steps import make_train_step as j_step
+    from repro.models import model as JM
+    from repro.models.layers import NOSHARD as J_NOSHARD
+    from repro.optim import AdamWConfig as JAdam
+    from repro.optim import adamw_init as j_init
+    from repro.optim import adamw_update as j_update
+    from repro.runtime.trainer import TrainerConfig as JTcfg
+    from repro.runtime.trainer import train_loop as j_loop
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as TM
+    from repro_torch.models.layers import NOSHARD
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.runtime import TrainerConfig, train_loop
+
+    jc, tc = _train_cfgs()
+    pnp = interop.lm_params_seed_numpy(tc, 1)
+    jp = jax.tree_util.tree_map(jnp.asarray, pnp)
+    tp = interop.lm_params_from_reference(pnp, "cpu")
+    b = SyntheticLM(512, 32, 4, seed=2).batch(0)
+    want, _ = JM.loss_fn(jp, {k: jnp.asarray(v) for k, v in b.items()}, jc,
+                         J_NOSHARD, JM.PerfConfig(remat="none"))
+    got, _ = TM.loss_fn(tp, {k: torch.from_numpy(v) for k, v in b.items()},
+                        tc, NOSHARD, TM.PerfConfig(remat="none"))
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+
+    grads_np = jax.tree_util.tree_map(lambda a: np.ones_like(a) * 0.01, pnp)
+    _, _, jm = j_update(jp, jax.tree_util.tree_map(jnp.asarray, grads_np),
+                        j_init(jp), JAdam())
+    _, _, tm = adamw_update(tp, interop.lm_params_from_reference(
+        grads_np, "cpu"), adamw_init(tp), AdamWConfig())
+    # 32k equal squares a leaf: the two sums' orders part in the 6th digit
+    assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]),
+                                                   rel=1e-5)
+    assert tm["lr"].item() == float(jm["lr"])
+
+    opt = dict(lr=1e-3, warmup_steps=2, total_steps=3)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    jts, _ = j_step(jc, JCell("t", 32, 4, "train"), mesh,
+                    perf=JM.PerfConfig(remat="full", accum_steps=2),
+                    opt_cfg=JAdam(**opt), multi_pod=False,
+                    dtype=jnp.float32)
+    ts, _ = make_train_step(tc, ShapeCell("t", 32, 4, "train"),
+                            make_local_mesh(1, 1, device="cpu"),
+                            perf=TM.PerfConfig(remat="full", accum_steps=2),
+                            opt_cfg=AdamWConfig(**opt), multi_pod=False,
+                            dtype=torch.float32, device="cpu")
+    seen = []
+    ref = j_loop(jts, jax.tree_util.tree_map(jnp.asarray, pnp),
+                 j_init(jax.tree_util.tree_map(jnp.asarray, pnp)),
+                 JPipe(512, 32, 4, seed=0),
+                 JTcfg(steps=3, ckpt_every=2, ckpt_dir=str(tmp_path / "j")),
+                 2, lambda step: {}, None)
+    params = interop.lm_params_from_reference(pnp, "cpu")
+    out = train_loop(ts, params, adamw_init(params),
+                     SyntheticLM(512, 32, 4, seed=0),
+                     TrainerConfig(steps=3, ckpt_every=2,
+                                   ckpt_dir=str(tmp_path / "t")),
+                     2, lambda step: {}, lambda *a: seen.append(a[0]))
+    assert seen == [0, 1, 2]
+    for g, r in zip(out["history"], ref["history"]):
+        assert g["loss"] == pytest.approx(r["loss"], rel=1e-5)
+
+    mgr = CheckpointManager(tmp_path / "m", 2, False)
+    mgr.save(4, {"params": out["params"]}, {"loss": 1.0})
+    back = mgr.restore(4, {"params": out["params"]}, None, None)
+    for a, b in zip(tree.leaves(out["params"]), tree.leaves(back)):
+        assert torch.equal(a, b)

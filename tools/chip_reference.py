@@ -1,4 +1,4 @@
-"""JAX reference values for ``chip_smoke.py``'s phases 22-29.
+"""JAX reference values for ``chip_smoke.py``'s phases 22-30.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_reference.py
 
@@ -50,6 +50,15 @@ port's chip run is held against this file.
   first round's ``stack_power_frames`` outputs, the verdict table, the
   bench's gated aggregates, ``serving_cost`` of both configs, and each
   scenario again at ``n_cg=120`` (the converged twins).
+- ``training`` (phase 30): ``train_loop`` at ``tests/test_runtime.py``'s
+  size (stablelm-1.6b cut to 2 layers of d 64, 4 x 32 tokens, 10 steps,
+  weights ``interop.lm_params_seed_numpy(cfg, 0)``) driven by the
+  reference's ``make_train_step`` on a mesh of Auto axes (its own
+  ``make_local_mesh`` makes Explicit axes on this JAX, on which
+  ``loss_fn``'s sharding constraints fail): the 10 losses and grad
+  norms; and for each of the ten reduced configs one
+  ``value_and_grad(loss_fn)`` at B = 2, S = 32 (MoE capacity drops
+  off): loss, nll, aux and the gradients' global norm.
 """
 from __future__ import annotations
 
@@ -58,6 +67,7 @@ import hashlib
 import json
 import math
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -80,6 +90,15 @@ from repro.models import serve as RS
 from repro.serving import (RequestShape, ServingScenario, TrafficSpec,
                            run_serving_cosim, serving_cost, verdict_table)
 from repro.sweep import SweepSpec, run_sweep
+from repro import configs as jcfg
+from repro.configs import list_configs
+from repro.configs.base import ShapeCell
+from repro.data import SyntheticLM
+from repro.launch.steps import make_train_step
+from repro.models import model as RM
+from repro.optim import AdamWConfig, adamw_init
+from repro.optim.adamw import global_norm
+from repro.runtime.trainer import TrainerConfig, train_loop
 from repro_torch import configs as tcfg
 from repro_torch import interop
 
@@ -489,11 +508,87 @@ def serving_phase() -> dict:
     return out
 
 
+#: phase 30 (c): the trainer at test_runtime's size; (d): one gradient
+#: of every reduced config
+TRAIN_SHAPE = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2,
+                   d_ff=128, vocab=512, d_head=32)
+TRAIN_LOOP = dict(seq_len=32, global_batch=4, steps=10, ckpt_every=4,
+                  stop_after=6, weight_seed=0, data_seed=0, remat="none",
+                  accum_steps=1, lr=1e-3, warmup_steps=2, total_steps=10)
+GRAD_CASE = dict(batch=2, seq_len=32, weight_seed=3, data_seed=1,
+                 capacity_factor=100.0)
+
+
+def grad_batch(cfg, p: dict) -> dict:
+    """Phase 30 (d)'s batch of ``cfg`` (NumPy, from ``p["data_seed"]``);
+    ``chip_smoke.py`` makes the same."""
+    rng = np.random.default_rng(p["data_seed"])
+    B, S = p["batch"], p["seq_len"]
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "encdec":
+        out["audio_embeds"] = rng.normal(
+            size=(B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.n_prefix_embeds:
+        out["prefix_embeds"] = rng.normal(
+            size=(B, cfg.n_prefix_embeds, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def grad_run(name: str) -> dict:
+    def cut(pkg):
+        c = pkg.get_config(name).reduced()
+        if c.moe is not None:
+            c = dataclasses.replace(c, moe=dataclasses.replace(
+                c.moe, capacity_factor=GRAD_CASE["capacity_factor"]))
+        return c
+    cfg, tc = cut(jcfg), cut(tcfg)
+    params = jax.tree_util.tree_map(jnp.asarray, interop.lm_params_seed_numpy(
+        tc, GRAD_CASE["weight_seed"]))
+    batch = {k: jnp.asarray(v) for k, v in grad_batch(cfg, GRAD_CASE).items()}
+    (loss, met), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: RM.loss_fn(p, b, cfg, perf=RM.PerfConfig(remat="none")),
+        has_aux=True))(params, batch)
+    return dict(loss=float(loss), nll=float(met["nll"]),
+                aux=float(met["aux"]), grad_norm=float(global_norm(grads)))
+
+
+def training_phase() -> dict:
+    from jax.sharding import AxisType
+    p = TRAIN_LOOP
+    cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
+                              **TRAIN_SHAPE)
+    tc = dataclasses.replace(tcfg.get_config("stablelm-1.6b").reduced(),
+                             **TRAIN_SHAPE)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    ts, _ = make_train_step(
+        cfg, ShapeCell("t", p["seq_len"], p["global_batch"], "train"), mesh,
+        perf=RM.PerfConfig(remat=p["remat"], accum_steps=p["accum_steps"]),
+        opt_cfg=AdamWConfig(lr=p["lr"], warmup_steps=p["warmup_steps"],
+                            total_steps=p["total_steps"]),
+        dtype=jnp.float32)
+    params = jax.tree_util.tree_map(jnp.asarray, interop.lm_params_seed_numpy(
+        tc, p["weight_seed"]))
+    with tempfile.TemporaryDirectory() as d:
+        out = train_loop(ts, params, adamw_init(params),
+                         SyntheticLM(cfg.vocab, p["seq_len"],
+                                     p["global_batch"], seed=p["data_seed"]),
+                         TrainerConfig(steps=p["steps"],
+                                       ckpt_every=p["ckpt_every"],
+                                       ckpt_dir=d))
+    loop = dict(losses=[h["loss"] for h in out["history"]],
+                grad_norms=[h["grad_norm"] for h in out["history"]])
+    return dict(shape=TRAIN_SHAPE, loop_params=p, loop=loop,
+                grad_params=GRAD_CASE,
+                grads={name: grad_run(name) for name in list_configs()})
+
+
 def main(argv) -> int:
     phases = dict(cosim=cosim_phase, coarsen=coarsen_phase,
                   faults=faults_phase, deep=deep_phase, shard=shard_phase,
                   apfloat=apfloat_phase, families=families_phase,
-                  serving=serving_phase)
+                  serving=serving_phase, training=training_phase)
     want = argv or list(phases)
     data = json.loads(OUT.read_text()) if OUT.exists() else {}
     for name in want:
