@@ -114,7 +114,9 @@ them times a kernel):
     yardstick the port never calls, ``scaled_dot_product_attention`` with
     the same boolean mask.  First it reads the built flash library with
     ``cuobjdump -sass`` and fails unless every bfloat16 instance issues
-    HGMMA (wgmma) and every float32 one HMMA or HGMMA;
+    HGMMA (wgmma) and every float32 one HMMA or HGMMA, and the backward
+    library unless every float32 instance of its dK/dV and dQ kernels
+    issues HMMA (3xTF32 ``mma.sync``) and every bfloat16 one HGMMA;
 18. the serving path at full width: h2o-danube-3-4b, all 24 layers,
     float32 weights from a seeded CUDA generator, ``serve_lm.generate``
     of 4 prompts of 5120 tokens and 16 greedy steps: finite logits, the
@@ -256,8 +258,10 @@ them times a kernel):
     causal case and rows with no valid key), dq, dk and dv each within
     ``FLASH_BWD_TOL`` normwise, two runs bit for bit, timed with CUDA
     events beside its bound (10 dh flops a visible pair, for float32 at
-    the 3xTF32 rate as phase 17 bounds the forward), the plain version's
-    backward and ``scaled_dot_product_attention``'s; (b)
+    the 3xTF32 rate as phase 17 bounds the forward; the design's own
+    bound, 14 dh flops a pair since both kernels recompute S and dP, is
+    printed beside it), the plain version's backward and
+    ``scaled_dot_product_attention``'s; (b)
     stablelm-1.6b at its published width and depth (``TRAIN_FULL``:
     float32 weights from a seeded CUDA generator, 2 x 4096 tokens in 2
     microbatches, full remat): its first step with the plain attention
@@ -1688,11 +1692,27 @@ def _sass_mma_counts(lib_path) -> dict:
 
 def check_flash_sass(results) -> None:
     """Every bf16 instance of the flash kernel issues wgmma (HGMMA) and
-    every f32 instance tensor-core MMAs (HMMA or HGMMA)."""
+    every f32 instance tensor-core MMAs (HMMA or HGMMA); in the backward
+    library every f32 instance of the dK/dV and the dQ kernel issues HMMA
+    (3xTF32 mma.sync) and every bf16 one HGMMA."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
     src = next(s for s in _build.sources() if s.stem == "flash_attention")
     counts = _sass_mma_counts(_build.target(src))
+    src = next(s for s in _build.sources()
+               if s.stem == "flash_attention_bwd")
+    bwd = _sass_mma_counts(_build.target(src))
+    for kind, op in (("dkdv_f32", "HMMA"), ("dq_f32", "HMMA"),
+                     ("dkdv_bf16", "HGMMA"), ("dq_bf16", "HGMMA")):
+        inst = {k: c for k, c in bwd.items() if f"flash_bwd_{kind}" in k}
+        check(len(inst) == len(ops.HEAD_DIMS),
+              f"{len(inst)} flash_bwd_{kind} kernels in the SASS, not "
+              f"{len(ops.HEAD_DIMS)}")
+        check(all(c[op] > 0 for c in inst.values()),
+              f"a flash_bwd_{kind} kernel without {op}: {inst}")
+        say(f"  SASS: flash_bwd_{kind} kernels {op} "
+            f"{sorted(c[op] for c in inst.values())}")
+    results["flash_bwd_sass"] = bwd
     bf16 = {k: c for k, c in counts.items() if "flash_fwd_bf16" in k}
     f32 = {k: c for k, c in counts.items() if "flash_fwd_f32" in k}
     check(len(bf16) == len(f32) == len(ops.HEAD_DIMS),
@@ -4758,17 +4778,20 @@ def _flash_bwd_case(label: str, case: tuple) -> dict:
     flops = 10 * dh * pairs       # S, dP, dV, dK, dQ: 2 dh flops a pair each
     # float32 at float32 accuracy on the tensor cores is 3xTF32 (three
     # TF32 products a product), as phase 17 bounds the forward; the
-    # CUDA-core bound, the rate this kernel runs at, is kept beside it
+    # CUDA-core bound is kept beside it, and the design's own bound: both
+    # kernels recompute S and dP, 14 dh flops a pair
     if dtype == torch.bfloat16:
         b_ms, b_by = bound_ms(n_bytes, flops, BF16_OPS_PER_S)
+        own_ms = bound_ms(n_bytes, 1.4 * flops, BF16_OPS_PER_S)[0]
     else:
         b_ms, b_by = bound_ms(n_bytes, 3 * flops, TF32_OPS_PER_S)
+        own_ms = bound_ms(n_bytes, 4.2 * flops, TF32_OPS_PER_S)[0]
     core_ms = bound_ms(n_bytes, flops)[0]
     out = dict(shape=[B, sq, sk, hq, hkv, dh], causal=causal, window=window,
                dtype=dt, pairs=pairs, gaps=gaps, tol=FLASH_BWD_TOL[dt],
                max_abs_err=err, bit_for_bit=same, ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-               tflops=flops / ms / 1e9,
+               recompute_bound_ms=own_ms, tflops=flops / ms / 1e9,
                cuda_core_bound_ms=None if dtype == torch.bfloat16 else
                core_ms)
     say(f"  flash backward {label} {[B, sq, sk, hq, hkv, dh]} causal="
@@ -4777,7 +4800,8 @@ def _flash_bwd_case(label: str, case: tuple) -> dict:
         f"two runs bit for bit; kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} "
         f"TFLOP/s of the 10 dh flops a pair), plain {plain_ms:.3f} ms, SDPA "
         + ("n/a" if lib is None else f"{lib:.3f} ms")
-        + f", bound {b_ms:.4f} ms ({b_by}"
+        + f", bound {b_ms:.4f} ms ({b_by}; 14 dh flops a pair "
+        f"{own_ms:.4f} ms"
         + ("" if dtype == torch.bfloat16 else
            f"; f32 CUDA-core bound {core_ms:.4f} ms") + ")")
     return out

@@ -24,9 +24,12 @@ writes each row's log-sum-exp, and its backward is
 ``csrc/flash_attention_bwd.cu`` (the reference has no backward kernel:
 JAX differentiates its plain attention).  ``mha_backward.launches``
 counts its launches (three kernels a launch: the row sums D, then dK/dV,
-then dQ).  On the CPU, :func:`mha` is the plain ``ref.mha`` and autograd
-differentiates it (``ref.mha_backward`` is that plain backward, the
-kernel's oracle).
+then dQ).  The backward too runs every product on the tensor cores
+(3xTF32 ``mma.sync`` for float32, wgmma for bfloat16) and is
+deterministic: a CTA owns a key tile for dK/dV and a query tile for dQ,
+and sums it in a fixed order, with no atomics.  On the CPU, :func:`mha`
+is the plain ``ref.mha`` and autograd differentiates it
+(``ref.mha_backward`` is that plain backward, the kernel's oracle).
 """
 from __future__ import annotations
 

@@ -931,6 +931,18 @@ def _flash_grads(q, k, v, d_out, **mask):
     (1, 100, 64, 4, 2, 64, True, None),       # Sq > Sk: 36 rows see none
     (1, 70, 70, 4, 4, 128, True, 8),          # a window of 8 keys
     (2, 1, 96, 4, 4, 32, False, None),        # one query row
+    # the tile edges: 64 keys (dK/dV) and 64 query rows (dQ) a CTA, and
+    # looped-over tiles of 64 rows for dh <= 64 and 32 above; one less
+    # and one more than each in Sq and Sk, every head dim
+    (1, 63, 65, 2, 1, 16, True, None),
+    (1, 65, 63, 2, 2, 32, True, None),
+    (1, 127, 129, 4, 2, 64, False, None),
+    (1, 129, 127, 4, 4, 64, True, None),
+    (1, 31, 33, 2, 1, 120, True, None),
+    (1, 33, 31, 2, 2, 128, False, None),
+    (1, 64, 64, 2, 2, 128, True, None),       # the causal diagonal tile
+    (2, 97, 97, 4, 2, 120, True, 10),         # a window inside a tile
+    (1, 130, 130, 2, 1, 16, True, 3),         # a window of 3 keys
 ])
 def test_flash_backward_matches_plain_autograd(cuda, B, sq, sk, hq, hkv, dh,
                                                causal, window, dtype):
