@@ -125,7 +125,14 @@ them times a kernel):
     first sequence within ``SERVE_FORWARD_TOL`` of ``forward`` with the
     same argmax at every step; prints prefill and decode tokens/s, peak
     memory, and the device time by kernel of a profiled decode step and
-    of a profiled prefill (the flash kernel's share);
+    of a profiled prefill (the flash kernel's share), both through the
+    step builders (``launch.steps.make_decode_step`` and
+    ``make_prefill_step`` on ``make_local_mesh(1, 1)``, with
+    ``launch.cells.perf_for``'s settings of ``decode_32k`` and
+    ``prefill_32k``, those cells cut to the phase's 4 x 5120): the
+    decode step's logits bit for bit those of ``generate``'s last
+    ``decode_step`` on the same caches, the prefill step's bit for bit
+    ``generate``'s first, and the flash kernel launched once a layer;
 19. the same model cut to 2 layers, weights
     ``interop.lm_params_from_seed(cfg, 0)``, a 4608-token prompt and 4
     greedy steps: each step's argmax equal to the JAX reference's, its
@@ -280,7 +287,14 @@ them times a kernel):
     losses bit for bit, and JAX's within ``TRAIN_REF_RTOL``; (d) one
     ``loss_fn`` gradient of each of the ten reduced configs: loss, nll,
     aux and the gradient norm within ``TRAIN_REF_RTOL`` of JAX's, the
-    flash backward launched for the dense, hybrid and encdec families.
+    flash backward launched for the dense, hybrid and encdec families;
+    (e) the same process on a world-size-1 NCCL group: (c)'s model and
+    data through ``make_train_step`` on a 1 x 1 ``DeviceMesh``, two
+    steps with losses, gradient norms and every updated parameter bit
+    for bit the one-device step's and both flash kernels launched,
+    ``compressed_psum`` over ``data`` bit for bit ``ef_compress`` and
+    ``ef_decompress``, and a save of the ``DTensor`` parameters restored
+    onto the mesh by their specs bit for bit.
 Phases 22-30 read their parameters and the JAX reference's values from
 ``tools/chip_reference.json`` (``tools/chip_reference.py``); 22-25 rerun
 every kernel they launched on the inputs they gave it, as in 20.
@@ -1890,16 +1904,51 @@ def serve_path(results):
     say(f"  prefill + {G} decode steps vs forward on sequence 0: max |diff| "
         f"{max(errs):.2e} (tol {SERVE_FORWARD_TOL}), argmax equal at every "
         f"step")
-    from repro_torch.models import serve as SV
-    step = _profile_serve(lambda: SV.decode_step(
-        params, out["tokens"][:, -1:], out["caches"], P + G, cfg))
+    # the step builders on the one-device mesh, at the reference's cells
+    # cut to this phase's batch and lengths (32 x 32768 prompts, or 128
+    # sequences of 32768, take more than 80 GB in float32)
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.cells import perf_for
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    mesh = make_local_mesh(1, 1)
+    prefill_step, _ = make_prefill_step(
+        cfg, ShapeCell("prefill_32k", P, B, "prefill"), mesh,
+        perf=perf_for(cfg.name, "prefill_32k"), dtype=torch.float32)
+    decode_step, _ = make_decode_step(
+        cfg, ShapeCell("decode_32k", P + G, B, "decode"), mesh,
+        perf=perf_for(cfg.name, "decode_32k"), dtype=torch.float32)
+    say(f"  step builders on {mesh}: prefill_32k cut 32 x 32768 -> {B} x "
+        f"{P}, decode_32k 128 x 32768 -> {B} x {P + G}, "
+        f"perf {perf_for(cfg.name, 'prefill_32k')} / "
+        f"{perf_for(cfg.name, 'decode_32k')}")
+    # generate's last step again, on the caches it left: its position's
+    # slot is rewritten with the same keys and values
+    got = {}
+    reset_launches()
+    step = _profile_serve(lambda: got.update(decode=decode_step(
+        params, out["tokens"][:, G - 1:G], out["caches"], P + G - 1)[0]))
+    step_launches = read_launches()
+    check(torch.equal(got["decode"], out["logits"][G]),
+          "the decode step's logits differ from generate's last "
+          "decode_step on the same caches")
     say(f"  profiled decode step (B={B}): wall {step['wall_ms']:.2f} ms, "
-        f"device {step['device_ms']:.2f} ms")
+        f"device {step['device_ms']:.2f} ms; logits bit for bit generate's "
+        f"last step")
     for t in step["top"]:
         say(f"    {t['device_ms']:9.3f} ms {t['launches']:5d} launches "
             f"{t['kernel'][:60]}")
-    prof = _profile_serve(lambda: SV.prefill(
-        params, {"tokens": tokens.cuda()}, cfg, max_seq=P + G))
+    reset_launches()
+    prof = _profile_serve(lambda: got.update(prefill=prefill_step(
+        params, {"tokens": tokens})[0]))
+    prefill_launches = read_launches()
+    check(prefill_launches["flash_attention"] == cfg.n_layers,
+          f"the prefill step launched the flash kernel "
+          f"{prefill_launches['flash_attention']} times")
+    check(torch.equal(got["prefill"], out["logits"][0]),
+          "the prefill step's logits differ from generate's first")
+    say(f"  prefill step: logits bit for bit generate's first, "
+        f"{prefill_launches['flash_attention']} flash launches")
     if prof["flash_launches"] and prof["device_ms"] > 0:
         say(f"  profiled prefill: device {prof['device_ms']:.1f} ms, flash "
             f"{prof['flash_ms']:.1f} ms "
@@ -1918,8 +1967,10 @@ def serve_path(results):
         prefill_tok_s=B * P / out["prefill_s"],
         decode_tok_s=B * G / out["decode_s"], peak_bytes=peak,
         launches=launches, forward_launches=fwd_launches,
-        forward_max_err=max(errs), profile=prof, decode_profile=step)
-    del params, out
+        forward_max_err=max(errs), profile=prof, decode_profile=step,
+        prefill_step_launches=prefill_launches["flash_attention"],
+        decode_step_launches=step_launches["flash_attention"])
+    del params, out, got
     torch.cuda.empty_cache()
     return launches
 
@@ -5182,7 +5233,106 @@ def _training_lane_worker():
     with contextlib.redirect_stdout(io.StringIO()):
         trainer = _trainer_restart(ref)
         reduced = _reduced_grads(ref)
-    return trainer, reduced, LINES, time.perf_counter() - t0
+        mesh = _mesh_lane(ref)
+    return trainer, reduced, mesh, LINES, time.perf_counter() - t0
+
+
+def _mesh_lane(ref: dict) -> dict:
+    """(e): the train step, ``compressed_psum`` and the re-mesh restore
+    on a 1 x 1 ``DeviceMesh`` of a world-size-1 NCCL group (its store a
+    file in a temporary directory), each against its one-device twin bit
+    for bit."""
+    import dataclasses
+    import datetime
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch import interop, tree
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_train_step, params_sds
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.compress import (compressed_psum, ef_compress,
+                                            ef_decompress)
+    from repro_torch.parallel.sharding import param_specs, spec_paths
+    p = ref["loop_params"]
+    cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
+                              **ref["shape"])
+    cell = ShapeCell("t", p["seq_len"], p["global_batch"], "train")
+    perf = M.PerfConfig(remat=p["remat"], accum_steps=2)
+    ocfg = AdamWConfig(lr=p["lr"], warmup_steps=p["warmup_steps"],
+                       total_steps=p["total_steps"])
+    pipe = SyntheticLM(cfg.vocab, p["seq_len"], p["global_batch"],
+                       seed=p["data_seed"])
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_local_mesh(1, 1)
+            check(isinstance(mesh, DeviceMesh)
+                  and mesh.device_type == "cuda", f"1 x 1 mesh {mesh!r}")
+            runs = {}
+            for name, m in (("one", (torch.device("cuda"),)),
+                            ("mesh", mesh)):
+                ts, _ = make_train_step(cfg, cell, m, perf=perf,
+                                        opt_cfg=ocfg, dtype=torch.float32)
+                params = interop.lm_params_from_seed(cfg, p["weight_seed"])
+                opt = adamw_init(params)
+                reset_launches()
+                hist = []
+                for s in range(2):
+                    params, opt, met = ts(params, opt, pipe.microbatched(
+                        s, 2))
+                    hist.append({k: (v.full_tensor() if isinstance(
+                        v, DTensor) else v).clone() for k, v in met.items()})
+                runs[name] = (hist, params, read_launches())
+            (h1, p1, _), (h2, p2, launches) = runs["one"], runs["mesh"]
+            same = all(torch.equal(a[k], b[k]) for a, b in zip(h1, h2)
+                       for k in ("loss", "grad_norm", "lr"))
+            whole = {k: v.full_tensor() for k, v in tree.paths(p2)}
+            same_p = all(torch.equal(whole[k], v) for k, v in tree.paths(p1))
+            check(same and same_p, "the 1 x 1 DeviceMesh train step differs "
+                  "from the one-device step")
+            check_launched(launches, ("flash_attention",
+                                      "flash_attention_bwd"),
+                           "the DeviceMesh train step")
+            g = torch.Generator("cuda").manual_seed(0)
+            x = torch.randn(4096, device="cuda", generator=g)
+            r = torch.randn(4096, device="cuda", generator=g) * 1e-3
+            mean, new_r = compressed_psum(x, r, "data", mesh=mesh)
+            q, scale, want_r = ef_compress(x, r)
+            check(torch.equal(mean, ef_decompress(q, scale))
+                  and torch.equal(new_r, want_r),
+                  "compressed_psum over one rank differs from ef_compress")
+            specs = param_specs(cfg, params_sds(cfg, torch.float32))
+            save(f"{tmp}/ck", 1, p2)
+            back = restore(f"{tmp}/ck", 1, params_sds(cfg, torch.float32),
+                           mesh=mesh, specs=specs)
+            placed = {k: tuple(v.placements) for k, v in tree.paths(p2)}
+            check(all(torch.equal(v.full_tensor(), whole[k])
+                      and tuple(v.placements) == placed[k]
+                      for k, v in tree.paths(back))
+                  and len(spec_paths(specs)) == len(whole),
+                  "the re-mesh restore differs from the saved parameters")
+            out = dict(losses=[float(h["loss"]) for h in h2],
+                       grad_norms=[float(h["grad_norm"]) for h in h2],
+                       launches={k: v for k, v in launches.items() if v})
+        finally:
+            dist.destroy_process_group()
+    say(f"  (e) 1 x 1 DeviceMesh over NCCL: 2 train steps bit for bit the "
+        f"one-device step (losses {[round(x, 6) for x in out['losses']]}), "
+        f"flash launches {out['launches']}; compressed_psum bit for bit "
+        f"ef_compress; save and re-mesh restore of {len(whole)} DTensor "
+        f"parameters bit for bit")
+    return out
 
 
 def start_training_lane() -> _Workers:
@@ -5195,15 +5345,15 @@ def start_training_lane() -> _Workers:
 @phase("30 training (c)-(d), in a process of its own")
 def training_lane(results, lane: _Workers):
     t_wait = time.perf_counter()
-    (trainer, reduced, lines, seconds), = lane.results()
+    (trainer, reduced, mesh, lines, seconds), = lane.results()
     waited = time.perf_counter() - t_wait
     for line in lines:
         say(line)
-    say(f"  (c) and (d): {seconds:.2f} s in their process, started with "
+    say(f"  (c)-(e): {seconds:.2f} s in their process, started with "
         f"phase 26; {waited:.2f} s of it waited for here")
-    results["training"].update(trainer=trainer, reduced=reduced,
+    results["training"].update(trainer=trainer, reduced=reduced, mesh=mesh,
                                lane_s=seconds, lane_waited_s=waited)
-    return dict(trainer=trainer["launches"],
+    return dict(trainer=trainer["launches"], mesh=mesh["launches"],
                 reduced={k: v["flash_bwd"] for k, v in reduced.items()
                          if v["flash_bwd"]})
 
@@ -5397,7 +5547,13 @@ def main() -> int:
                         "training_30:stablelm_step":
                             train_launches["full"]["flash_fwd"],
                         "training_30:trainer":
-                            train_launches["trainer"]["flash_attention"]}),
+                            train_launches["trainer"]["flash_attention"],
+                        "serve_prefill_step_18":
+                            results["serve_path"]["prefill_step_launches"],
+                        "serve_decode_step_18":
+                            results["serve_path"]["decode_step_launches"],
+                        "training_30:mesh_step_1x1":
+                            train_launches["mesh"]["flash_attention"]}),
         _kernel_row("flash_attention_bwd.mha_backward",
                     f"{src}/flash_attention/csrc/flash_attention_bwd.cu",
                     "src/repro/models/attention.py:77",
@@ -5412,6 +5568,8 @@ def main() -> int:
                             train_launches["full"]["flash_bwd"],
                         "training_30:trainer":
                             train_launches["trainer"]["flash_attention_bwd"],
+                        "training_30:mesh_step_1x1":
+                            train_launches["mesh"]["flash_attention_bwd"],
                         **{f"training_30:reduced:{k}": v for k, v in
                            train_launches["reduced"].items()}}),
     ]

@@ -1,3 +1,3 @@
 """Launcher: roofline terms and parameter counts (``roofline``), the
-shape-only parameter tree and the train step (``steps``), and the
-one-device mesh (``mesh``)."""
+cells and their per-cell settings (``cells``), the step builders
+(``steps``) and the meshes they run on (``mesh``)."""

@@ -9,23 +9,41 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 
 # ---------------------------------------------------------------------------
-# Sharder: the reference's sharding hooks, identities on one card
+# Sharder: the reference's sharding hooks and axis names
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class Sharder:
-    """The reference's activation-sharding hooks as identities.
+    """The reference's activation-sharding hooks, with its fields.
 
-    The reference constrains layouts on a device mesh; the port runs on
-    one card until ``parallel/`` is ported, so every hook returns its
-    argument.
+    Axis names: 'data' (DP/FSDP), 'model' (TP/EP/SP); 'pod' extends data.
+    ``data_axes`` is the batch's shard axis (or axes), ``seq_axes`` the
+    cache sequence's, ``model_axes`` by default (for tiny-batch cells the
+    launcher sets ``data_axes=None`` and shards the sequence over the
+    whole mesh).  ``mesh`` is the ``DeviceMesh`` the step builders place
+    storage on (``launch.steps``), ``None`` off a mesh.
+
+    The reference constrains activation layouts with these hooks.  The
+    port's step runs the whole model on each rank (compute is data
+    parallel and replicated over ``model``; see ``launch/steps.py``), so
+    every hook returns its argument and the fields steer where the step
+    splits the batch and places its results.
     """
+    mesh: Any = None
+    data_axes: Any = "data"
+    model_axes: Any = "model"
+    seq_axes: Any = None          # defaults to model_axes
+
+    def __post_init__(self):
+        if self.seq_axes is None:
+            object.__setattr__(self, "seq_axes", self.model_axes)
 
     def btd(self, x):        # [batch, seq, d_model]
         return x

@@ -47,10 +47,12 @@ from repro_torch.models.layers import (NOSHARD, Sharder, dense_init,
 
 @dataclasses.dataclass(frozen=True)
 class PerfConfig:
-    """The reference's per-cell knobs, in its order.  ``scan_layers`` and
-    ``parallelism`` are accepted and change nothing on one card (the port
-    loops over layers in Python, and shards nothing until ``parallel/``'s
-    model half is ported)."""
+    """The reference's per-cell knobs, in its order.  ``parallelism``
+    picks how a train step on a ``DeviceMesh`` splits its batch
+    (``launch.steps.make_sharder``: ``"fsdp"`` over the whole mesh,
+    ``"2d"`` over the data axes; compute over ``model`` is replicated).
+    ``scan_layers`` is accepted and changes nothing (the port loops over
+    layers in Python either way)."""
     remat: str = "full"                # none | full | dots | dots_nb
     attn_chunk: Optional[int] = None   # kv-chunked attention block size
     #                                    (MLA's online softmax; the flash

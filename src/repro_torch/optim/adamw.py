@@ -87,12 +87,14 @@ def _reference_rank(key: str, p: torch.Tensor) -> int:
 
 
 @torch.no_grad()
-def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig
-                 ) -> tuple[Any, dict, dict]:
+def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
+                 *, grad_norm=None) -> tuple[Any, dict, dict]:
     """Returns (params', state', metrics {"grad_norm", "lr"}), params' and
-    the moments being the given tensors, updated in place."""
+    the moments being the given tensors, updated in place.  ``grad_norm``
+    is the clip's norm where ``grads`` are shards of a larger tree (a
+    step on a ``DeviceMesh``); by default ``global_norm(grads)``."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     stepf = step.float()
     lr = schedule(stepf, cfg)

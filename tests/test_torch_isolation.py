@@ -33,6 +33,9 @@ TRAINING_MODULES = (
     "repro_torch.launch.steps", "repro_torch.launch.mesh",
     "repro_torch.train_lm")
 
+#: the mesh slice's modules: specs, meshes, cells
+MESH_MODULES = ("repro_torch.parallel.sharding", "repro_torch.launch.cells")
+
 
 def test_port_imports_neither_jax_nor_reference():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -41,8 +44,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     names = set(proc.stdout.split("]", 1)[1].split())
-    assert set(TRAINING_MODULES) <= names, \
-        sorted(set(TRAINING_MODULES) - names)
+    assert set(TRAINING_MODULES + MESH_MODULES) <= names, \
+        sorted(set(TRAINING_MODULES + MESH_MODULES) - names)
     # every module of the port was imported, the configs, models and
     # flash-attention modules, obs, the policy family, the sweep and the
     # sensor-fault models and guard included
@@ -179,7 +182,8 @@ def test_training_entry_points_raise_without_a_card(no_card, tmp_path):
     mesh = make_local_mesh(1, 1, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         make_train_step(cfg, cell, mesh)
-    with pytest.raises(NotImplementedError):
+    # past 1 x 1 a mesh is a DeviceMesh over a process group of that size
+    with pytest.raises(ValueError, match="process group"):
         make_local_mesh(2, 1, device="cpu")
     args = ["--steps", "2", "--width", "64", "--layers", "1", "--batch",
             "2", "--seq", "8", "--vocab", "256", "--ckpt-dir",
@@ -188,6 +192,36 @@ def test_training_entry_points_raise_without_a_card(no_card, tmp_path):
         train_lm.main(args)
     out = train_lm.main(args + ["--device", "cpu"])
     assert [h["step"] for h in out["history"]] == [0, 1]
+
+
+def test_serve_step_builders_raise_without_a_card(no_card):
+    """The prefill and decode step builders default to the card and raise
+    without one; with ``device="cpu"`` their steps run on the one-device
+    mesh."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b").reduced(),
+                              n_layers=1)
+    cell = ShapeCell("p", 8, 2, "prefill")
+    mesh = make_local_mesh(1, 1, device="cpu")
+    for build in (make_prefill_step, make_decode_step):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build(cfg, cell, mesh)
+    prefill, (psds, batch_sds) = make_prefill_step(cfg, cell, mesh,
+                                                   device="cpu")
+    decode, example = make_decode_step(cfg, cell, mesh, device="cpu")
+    assert all(t.device.type == "meta" for t in
+               [batch_sds["tokens"], *example[1:2], example[3]])
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    logits, caches = prefill(params, {"tokens": torch.zeros(
+        (2, 8), dtype=torch.int32)})
+    logits, caches = decode(params, logits.argmax(-1)[:, None], caches, 8)
+    assert logits.shape == (2, M.vocab_padded(cfg))
 
 
 def test_flash_backward_kernel_has_no_cpu_path():

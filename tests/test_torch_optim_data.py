@@ -290,9 +290,16 @@ def test_async_save_copies_before_the_tensors_change(tmp_path):
 
 
 def test_restore_onto_a_mesh_is_not_ported(tmp_path):
+    """The re-mesh restore takes a ``DeviceMesh`` (tested in spawned
+    worlds, ``test_torch_distributed_serve.py``) or the one-device mesh;
+    anything else is refused with a ``TypeError`` that says so."""
     save(tmp_path, 1, _tree())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         restore(tmp_path, 1, _tree(), mesh=object(), specs={})
+    out = restore(tmp_path, 1, _tree(), mesh=(torch.device("cpu"),),
+                  specs={})
+    for k, v in tree.paths(out):
+        assert torch.equal(v, dict(tree.paths(_tree()))[k]), k
 
 
 # --------------------------------------------------------------- straggler
