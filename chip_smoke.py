@@ -5,11 +5,11 @@
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit.  It builds the port's hand-written kernels from ``src/`` and runs
 these phases, each printing one line with its result and seconds, in this
-order but for the last four: 27, 28 and 30 run before 26, phase 30's
-(c) and (d) in a process of their own, and phase 29's quick lane in four
-processes of its own, all five started before phase 26 so that their
-host-bound work overlaps phase 26's and the smoke scenario's (none of
-them times a kernel):
+order but for the last five: 27, 28 and 30 run before 26, phase 30's
+(c)-(e) with phase 31's (b) in a process of their own, phase 29's quick
+lane in four processes of its own and phase 31's dry run in one more,
+all started before phase 26 so that their host-bound work overlaps
+phase 26's and the smoke scenario's (none of them times a kernel):
 
 1. the card's name and power limit (``nvidia-smi``), then the kernel build;
 2. the thermal-stencil kernel against its plain PyTorch version on the
@@ -294,7 +294,17 @@ them times a kernel):
     for bit the one-device step's and both flash kernels launched,
     ``compressed_psum`` over ``data`` bit for bit ``ef_compress`` and
     ``ef_decompress``, and a save of the ``DTensor`` parameters restored
-    onto the mesh by their specs bit for bit.
+    onto the mesh by their specs bit for bit;
+31. the dry run and costing, timing no kernel: (a) ``python -m
+    repro_torch.launch.dryrun`` of each of ``DRYRUN_CELLS`` on the fake
+    256- or 512-rank process group, in a process of its own with the
+    card hidden: each exits 0, and its record's flops, peak bytes and
+    roofline terms are finite and positive; each cell's terms, dominant
+    term, useful-flop ratio, peak GiB a device and seconds; (b) in the
+    training lane, one train step of (c)'s model on the card under
+    ``launch.costing.CostCounter``, both flash kernels launched: its
+    flops and its product and attention flops equal ``step_cost``'s count
+    of the same cfg, cell and perf on fake tensors.
 Phases 22-30 read their parameters and the JAX reference's values from
 ``tools/chip_reference.json`` (``tools/chip_reference.py``); 22-25 rerun
 every kernel they launched on the inputs they gave it, as in 20.
@@ -5062,26 +5072,33 @@ def _train_full() -> dict:
     return out
 
 
-def _trainer_setup(ref: dict):
-    """(c)'s train step, weights, optimizer state and data on the card,
-    as ``chip_reference.json`` describes them."""
+def _trainer_model(ref: dict):
+    """(c)'s config, cell and perf, as ``chip_reference.json`` describes
+    them."""
     import dataclasses
-    import torch
-    from repro_torch import interop
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCell
-    from repro_torch.data import SyntheticLM
-    from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as M
-    from repro_torch.optim import AdamWConfig, adamw_init
     p = ref["loop_params"]
     cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
                               **ref["shape"])
+    return (cfg, ShapeCell("t", p["seq_len"], p["global_batch"], "train"),
+            M.PerfConfig(remat=p["remat"], accum_steps=p["accum_steps"]))
+
+
+def _trainer_setup(ref: dict):
+    """(c)'s train step, weights, optimizer state and data on the card,
+    as ``chip_reference.json`` describes them."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    p = ref["loop_params"]
+    cfg, cell, perf = _trainer_model(ref)
     ts, _ = make_train_step(
-        cfg, ShapeCell("t", p["seq_len"], p["global_batch"], "train"),
-        make_local_mesh(1, 1),
-        perf=M.PerfConfig(remat=p["remat"], accum_steps=p["accum_steps"]),
+        cfg, cell, make_local_mesh(1, 1), perf=perf,
         opt_cfg=AdamWConfig(lr=p["lr"], warmup_steps=p["warmup_steps"],
                             total_steps=p["total_steps"]),
         dtype=torch.float32)
@@ -5234,7 +5251,9 @@ def _training_lane_worker():
         trainer = _trainer_restart(ref)
         reduced = _reduced_grads(ref)
         mesh = _mesh_lane(ref)
-    return trainer, reduced, mesh, LINES, time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        count = _count_lane(ref)
+    return trainer, reduced, mesh, count, LINES, seconds
 
 
 def _mesh_lane(ref: dict) -> dict:
@@ -5345,7 +5364,8 @@ def start_training_lane() -> _Workers:
 @phase("30 training (c)-(d), in a process of its own")
 def training_lane(results, lane: _Workers):
     t_wait = time.perf_counter()
-    (trainer, reduced, mesh, lines, seconds), = lane.results()
+    (trainer, reduced, mesh, count, lines, seconds), = lane.results()
+    results["costing"] = {"count": count}
     waited = time.perf_counter() - t_wait
     for line in lines:
         say(line)
@@ -5356,6 +5376,137 @@ def training_lane(results, lane: _Workers):
     return dict(trainer=trainer["launches"], mesh=mesh["launches"],
                 reduced={k: v["flash_bwd"] for k, v in reduced.items()
                          if v["flash_bwd"]})
+
+
+def _count_lane(ref: dict) -> dict:
+    """Phase 31 (b), in the training lane: one train step of (c)'s model
+    on the card under ``launch.costing.CostCounter`` (the flash forward
+    and backward kernels launched), and the same cfg, cell and perf
+    counted on fake tensors (``step_cost``, on the host): the flops and
+    the product and attention flops must be equal."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.costing import CostCounter, step_cost
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    t0 = time.perf_counter()
+    p = ref["loop_params"]
+    cfg, cell, perf = _trainer_model(ref)
+    ts, _ = make_train_step(cfg, cell, make_local_mesh(1, 1), perf=perf,
+                            dtype=torch.float32)
+    params = interop.lm_params_from_seed(cfg, p["weight_seed"])
+    opt = adamw_init(params)
+    batch = SyntheticLM(cfg.vocab, p["seq_len"], p["global_batch"],
+                        seed=p["data_seed"]).microbatched(0,
+                                                          p["accum_steps"])
+    reset_launches()
+    with CostCounter() as card:
+        ts(params, opt, batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launched(launches, ("flash_attention", "flash_attention_bwd"),
+                   "phase 31's counted train step")
+    t_card = time.perf_counter() - t0
+    fake = step_cost(cfg, cell, (torch.device("cpu"),), perf,
+                     dtype=torch.float32)
+    out = dict(flops=card.flops, matmul_flops=card.matmul_flops,
+               bytes=card.bytes, fake=fake.cost,
+               launches={k: v for k, v in launches.items() if v},
+               card_s=t_card, fake_s=fake.build_s + fake.run_s,
+               seconds=time.perf_counter() - t0)
+    check(card.flops == fake.cost["flops"]
+          and card.matmul_flops == fake.cost["matmul_flops"],
+          f"phase 31 (b): the card step counts {card.flops} flops "
+          f"({card.matmul_flops} in products and attention), its fake run "
+          f"{fake.cost['flops']} ({fake.cost['matmul_flops']})")
+    return out
+
+
+#: phase 31 (a): the dry run's cells, (arch, shape, --mesh)
+DRYRUN_CELLS = (("stablelm-1.6b", "train_4k", "single"),
+                ("whisper-base", "train_4k", "multi"),
+                ("codeqwen1.5-7b", "decode_32k", "single"))
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
+
+
+def _dryrun_worker():
+    """Phase 31 (a) in a process of its own: ``python -m
+    repro_torch.launch.dryrun`` of each of ``DRYRUN_CELLS`` in turn, the
+    card hidden (the dry run never initialises CUDA): each cell's
+    (cell, exit code, seconds, the output's last lines)."""
+    import os
+    import signal
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    out, child = [], []
+
+    def stop(*_):               # stopped by the main process: end the child
+        for proc in child:
+            proc.kill()
+        sys.exit(1)
+    signal.signal(signal.SIGTERM, stop)
+    for arch, shape, mesh in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out",
+             str(DRYRUN_OUT), "--force"], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        child[:] = [proc]
+        stdout, stderr = proc.communicate(timeout=600)
+        tail = "\n".join((stdout + stderr).splitlines()[-20:])
+        out.append(((arch, shape, mesh), proc.returncode,
+                    time.perf_counter() - t0, stdout, tail))
+    return out
+
+
+def start_dryrun() -> _Workers:
+    """Phase 31 (a) started in a spawned process beside phase 26: on the
+    host alone, one core, timed nowhere."""
+    return _Workers(_dryrun_worker, [()])
+
+
+@phase("31 dry run and costing")
+def dryrun_costing(results, dry: _Workers):
+    import math
+    t_wait = time.perf_counter()
+    runs, = dry.results()
+    waited = time.perf_counter() - t_wait
+    out = results["costing"]
+    out["cells"] = {}
+    for (arch, shape, mesh), rc, sec, stdout, tail in runs:
+        check(rc == 0 and "ALL CELLS PASSED" in stdout,
+              f"the dry run of {arch} {shape} --mesh {mesh} failed:\n{tail}")
+        mesh_name = "pod2x16x16" if mesh == "multi" else "pod16x16"
+        rec = json.loads((DRYRUN_OUT / mesh_name
+                          / f"{arch}__{shape}.json").read_text())
+        r, peak = rec["roofline"], rec["memory"]["peak_bytes_per_device"]
+        check(all(math.isfinite(x) and x > 0 for x in (
+            rec["cost"]["flops"], peak, r["compute_s"], r["memory_s"])),
+            f"the dry run of {arch} {shape} {mesh_name}: {rec}")
+        say(f"  (a) {arch} {shape} {mesh_name}: compute "
+            f"{r['compute_s']:.3e} s, memory {r['memory_s']:.3e} s, "
+            f"collective {r['collective_s']:.3e} s, dominant "
+            f"{r['dominant']}, useful-flop ratio "
+            f"{r['useful_flop_ratio']:.4f}, peak {peak / 2**30:.2f} GiB a "
+            f"device; {sec:.1f} s (build {rec['lower_s']} s, fake run "
+            f"{rec['compile_s']} s)")
+        out["cells"][f"{arch}/{shape}/{mesh_name}"] = dict(
+            roofline=r, peak_bytes_per_device=peak, seconds=sec,
+            cost=rec["cost"], collectives=rec["collectives"])
+    c = out["count"]
+    say(f"  (b) one train step of (c)'s model on the card: "
+        f"{c['flops']:.6e} flops ({c['matmul_flops']:.6e} in products and "
+        f"attention), equal to its fake count; bytes {c['bytes']:.6e} "
+        f"(fake {c['fake']['bytes']:.6e}); launches {c['launches']}; "
+        f"{c['seconds']:.2f} s of the training lane ({c['card_s']:.2f} s "
+        f"the card step, {c['fake_s']:.2f} s the fake count)")
+    say(f"  (a) {sum(x[2] for x in runs):.1f} s in its process, started "
+        f"with phase 26; {waited:.2f} s of it waited for here")
+    out["dryrun_waited_s"] = waited
+    return out
 
 
 def _kernel_row(name, source, replaces, launches, r, **extra):
@@ -5420,16 +5571,19 @@ def main() -> int:
     lane_launches = lane_sharding(results)
     family_launches = model_families(results)
     train_launches = training(results)
-    # the last two phases time no kernel: phase 30's (c) and (d), and
-    # phase 29's quick lane, run in processes of their own beside phase
-    # 26 and phase 29's smoke scenario
+    # the last phases time no kernel: phase 30's (c)-(e) with phase 31's
+    # (b), phase 29's quick lane and phase 31's dry run run in processes
+    # of their own beside phase 26 and phase 29's smoke scenario
     train_lane = start_training_lane()
     lane = start_quick_lane()
+    dry = start_dryrun()
     try:
         shard_launches = sharded_paths(results)
         train_launches.update(training_lane(results, train_lane))
         serving_launches = serving_path(results, lane)
+        dryrun_costing(results, dry)
     finally:
+        dry.stop()
         lane.stop()
         train_lane.stop()
     new_paths = {"cosim_22": cosim_launches, "coarsened_replay_23":

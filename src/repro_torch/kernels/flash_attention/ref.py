@@ -32,10 +32,8 @@ def attention_mask(sq: int, sk: int, *, causal: bool, window: int | None,
     return m
 
 
-def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True, window: int | None = None,
-        scale: float | None = None, kv_len: int | None = None
-        ) -> torch.Tensor:
+def _attend(q, k, v, causal, window, scale, kv_len):
+    """(out float32, masked scores, mask) of the plain attention."""
     B, sq, hq, dh = q.shape
     _, sk, hkv, _ = k.shape
     if hq % hkv:
@@ -55,7 +53,27 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     any_valid = mask.any(dim=-1)
     probs = torch.where(any_valid[None, None, :, None], probs, 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
-    return out.to(q.dtype)
+    return out, scores, mask
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, window: int | None = None,
+        scale: float | None = None, kv_len: int | None = None
+        ) -> torch.Tensor:
+    return _attend(q, k, v, causal, window, scale, kv_len)[0].to(q.dtype)
+
+
+def mha_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, window: int | None = None,
+            scale: float | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(:func:`mha` 's output in float32, each row's log-sum-exp of the
+    scaled, masked scores [B, Hq, Sq]), the forward kernel's two
+    results; +inf on a row with no visible key, as the kernel writes."""
+    out, scores, mask = _attend(q, k, v, causal, window, scale, None)
+    lse = torch.logsumexp(torch.where(mask[None, None], scores, -torch.inf),
+                          dim=-1)
+    return out, torch.where(mask.any(dim=-1)[None, None], lse, torch.inf)
 
 
 def mha_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

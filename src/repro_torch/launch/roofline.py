@@ -8,8 +8,10 @@ step's per-device cost analysis are:
     memory     = bytes_accessed / hbm_bw
     collective = wire_bytes / link_bw
 
-wire_bytes applies per-op ring formulas to every collective in the
-partitioned HLO text (result-shape R, group size n):
+wire_bytes applies per-op ring formulas (``ring_wire_bytes``) to every
+collective, in the partitioned HLO text (``parse_collectives``) or as
+the port's steps issue them (``launch.costing``), result-shape R,
+group size n:
     all-gather       R * (n-1)/n
     all-reduce       2R * (n-1)/n
     reduce-scatter   R * (n-1)        (R is the scattered shard)
@@ -40,8 +42,9 @@ _DTYPE_BYTES = {
     "c128": 16,
 }
 
-_COLL = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
-         "collective-permute")
+#: the collectives, by the reference's (XLA's) names
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
 
 # `%x = f32[8,128]{1,0} all-gather(...)` or tuple `= (f32[..], ..) all-reduce(`
 _LINE = re.compile(
@@ -76,10 +79,30 @@ def _group_size(line: str, default: int) -> int:
     return default
 
 
+def ring_wire_bytes(op: str, result_bytes: float, n: int) -> float:
+    """Bytes one rank sends for collective ``op`` (one of ``COLLECTIVES``)
+    of result size ``result_bytes`` over a group of ``n``, by the ring
+    formulas of this module's docstring.  A group of one sends nothing."""
+    if n <= 1:
+        return 0.0
+    R = float(result_bytes)
+    if op == "all-gather":
+        return R * (n - 1) / n
+    if op == "all-reduce":
+        return 2.0 * R * (n - 1) / n
+    if op == "reduce-scatter":
+        return R * (n - 1)
+    if op == "all-to-all":
+        return R * (n - 1) / n
+    if op == "collective-permute":
+        return R
+    raise ValueError(f"unknown collective {op!r}")
+
+
 def parse_collectives(hlo_text: str, default_group: int = 16) -> dict:
     """Sum wire bytes per collective kind over the partitioned module."""
-    out = {k: 0.0 for k in _COLL}
-    counts = {k: 0 for k in _COLL}
+    out = {k: 0.0 for k in COLLECTIVES}
+    counts = {k: 0 for k in COLLECTIVES}
     for line in hlo_text.splitlines():
         m = _LINE.search(line)
         if not m:
@@ -87,19 +110,10 @@ def parse_collectives(hlo_text: str, default_group: int = 16) -> dict:
         type_str, op = m.group(1), m.group(2)
         R = _shape_bytes(type_str)
         n = max(_group_size(line, default_group), 2)
-        if op == "all-gather":
-            wire = R * (n - 1) / n
-        elif op == "all-reduce":
-            wire = 2.0 * R * (n - 1) / n
-        elif op == "reduce-scatter":
-            wire = R * (n - 1)
-        elif op == "all-to-all":
-            wire = R * (n - 1) / n
-        else:  # collective-permute
-            wire = R
+        wire = ring_wire_bytes(op, R, n)
         out[op] += wire
         counts[op] += 1
-    out["total_wire_bytes"] = sum(out[k] for k in _COLL)
+    out["total_wire_bytes"] = sum(out[k] for k in COLLECTIVES)
     out["counts"] = counts
     return out
 

@@ -439,8 +439,10 @@ def make_decode_step(cfg: ArchConfig, cell: ShapeCell, mesh, *,
     on ``"meta"``.
 
     ``decode_step(params, tokens, caches, pos)`` is ``models.serve.
-    decode_step`` of tokens [B, 1] at position ``pos`` (an int or a
-    0-d tensor): (logits [B, vocab_p], caches).  On the one-device mesh
+    decode_step`` of tokens [B, 1] at position ``pos``, a Python int or
+    a 0-d tensor (the step calls ``int(pos)``, so a dry run on fake
+    tensors, ``launch.costing``, passes an int): (logits [B, vocab_p],
+    caches).  On the one-device mesh
     it updates ``caches`` in place; on a ``DeviceMesh`` ``caches`` are
     placed by the retargeted ``cache_specs`` (as ``make_prefill_step``
     returns them), each rank gathers the sequence of its batch rows, and

@@ -43,12 +43,14 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections: tuple,
     if sum(sections) != dh // 2:
         raise ValueError(f"mrope sections {sections} != dh/2 = {dh // 2}")
     freqs = rope_freqs(dh, theta, x.device)                  # [dh/2]
-    # choose a position stream per half-dim
-    stream = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))             # [dh/2]
-    pos_per_dim = positions3.float()[stream]                 # [dh/2, B, S]
-    ang = torch.movedim(pos_per_dim, 0, -1) * freqs          # [B, S, dh/2]
+    # each half-dim's position stream, picked by Python-side slices: the
+    # shapes never depend on a tensor's values, so the card never syncs
+    # and fake tensors (a dry run) go through
+    pos = positions3.float()
+    B, S = pos.shape[1:]
+    pos_per_dim = torch.cat([pos[i][..., None].expand(B, S, n)
+                             for i, n in enumerate(sections)], dim=-1)
+    ang = pos_per_dim * freqs                                # [B, S, dh/2]
     return _rotate(x, ang)
 
 

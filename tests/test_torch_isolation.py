@@ -36,6 +36,9 @@ TRAINING_MODULES = (
 #: the mesh slice's modules: specs, meshes, cells
 MESH_MODULES = ("repro_torch.parallel.sharding", "repro_torch.launch.cells")
 
+#: the last slice's modules: the cost counter and the dry run
+COSTING_MODULES = ("repro_torch.launch.costing", "repro_torch.launch.dryrun")
+
 
 def test_port_imports_neither_jax_nor_reference():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -44,8 +47,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     names = set(proc.stdout.split("]", 1)[1].split())
-    assert set(TRAINING_MODULES + MESH_MODULES) <= names, \
-        sorted(set(TRAINING_MODULES + MESH_MODULES) - names)
+    wanted = set(TRAINING_MODULES + MESH_MODULES + COSTING_MODULES)
+    assert wanted <= names, sorted(wanted - names)
     # every module of the port was imported, the configs, models and
     # flash-attention modules, obs, the policy family, the sweep and the
     # sensor-fault models and guard included
