@@ -5,11 +5,12 @@
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit.  It builds the port's hand-written kernels from ``src/`` and runs
 these phases, each printing one line with its result and seconds, in this
-order but for the last five: 27, 28 and 30 run before 26, phase 30's
+order but for the last six: 27, 28 and 30 run before 26, phase 30's
 (c)-(e) with phase 31's (b) in a process of their own, phase 29's quick
-lane in four processes of its own and phase 31's dry run in one more,
-all started before phase 26 so that their host-bound work overlaps
-phase 26's and the smoke scenario's (none of them times a kernel):
+lane in four processes of its own, phase 31's dry run in one more and
+phase 32's two ranks in two more, all started before phase 26 so that
+their host-bound work overlaps phase 26's and the smoke scenario's
+(none of them times a kernel):
 
 1. the card's name and power limit (``nvidia-smi``), then the kernel build;
 2. the thermal-stencil kernel against its plain PyTorch version on the
@@ -304,12 +305,28 @@ phase 26's and the smoke scenario's (none of them times a kernel):
     training lane, one train step of (c)'s model on the card under
     ``launch.costing.CostCounter``, both flash kernels launched: its
     flops and its product and attention flops equal ``step_cost``'s count
-    of the same cfg, cell and perf on fake tensors.
+    of the same cfg, cell and perf on fake tensors;
+32. tensor-parallel compute over ``model``, in two processes of their own
+    (``TP_RUN``): a world of two ranks on the one card over gloo with
+    CUDA tensors (NCCL refuses two ranks on one device), a (data 1,
+    model 2) ``DeviceMesh``, stablelm-1.6b at its published width and
+    depth, seeded f32 weights from one CUDA generator seed in both
+    ranks: (a) through the step builders a prefill of 2 x 2048 prompts
+    and 16 greedy decode steps (``tensor_parallel.greedy`` over the
+    vocabulary-split logits), the flash forward launched 24 times a
+    prefill on each rank's 16 heads; (b) one train step of 1 x 4096
+    tokens with full remat, both flash kernels launched on each rank;
+    then on rank 0 the same weights' one-device prefill, decode and
+    step: tokens equal, logits within ``TP_LOGITS_RTOL`` of the
+    one-device logits' largest value, loss and gradient norm within
+    ``TP_LOSS_RTOL`` and ``TP_GNORM_RTOL``; a rank holds half of every
+    split weight and none whole; each rank's seconds, peak memory and
+    bytes of weights held.
 Phases 22-30 read their parameters and the JAX reference's values from
 ``tools/chip_reference.json`` (``tools/chip_reference.py``); 22-25 rerun
 every kernel they launched on the inputs they gave it, as in 20.
 
-Phases 5, 9-12, 14-16 and 18-30 each set every kernel's launch counter
+Phases 5, 9-12, 14-16, 18-30 and 32 each set every kernel's launch counter
 to 0 just before they drive their path and read the counters just after;
 a kernel of the path that was not launched fails the phase.  The model's
 entry points (``forward``, ``prefill``, ``decode_step``) and phase 17's
@@ -5509,6 +5526,268 @@ def dryrun_costing(results, dry: _Workers):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 32: tensor-parallel compute over "model"
+# ---------------------------------------------------------------------------
+
+#: phase 32: stablelm-1.6b at its published width on a (data 1, model 2)
+#: mesh of two processes on the one card, over gloo with CUDA tensors
+TP_RUN = dict(config="stablelm-1.6b", n_layers=24, seed=0, batch=2,
+              prompt=2048, decode_steps=16, train_tokens=4096, remat="full")
+#: (a): logits within this share of the one-device logits' largest value
+TP_LOGITS_RTOL = 1e-4
+#: (b): loss and gradient norm against the one-device step, relative
+TP_LOSS_RTOL = 1e-5
+TP_GNORM_RTOL = 1e-4
+
+
+def _tp_serve(prefill, decode, params, tokens, tp) -> dict:
+    """(a) through the step builders: a prefill of ``tokens`` and
+    ``decode_steps`` greedy steps, each step's logits whole on the host,
+    the greedy tokens, seconds and flash launches."""
+    import torch
+    from repro_torch.parallel import tensor_parallel as TP
+    p = TP_RUN
+
+    def whole(logits):
+        if tp is None:
+            return logits.cpu()
+        return tp.all_gather(logits.to_local(), 1, logits.shape[1]).cpu()
+
+    def greedy(logits):
+        if tp is None:
+            return logits.argmax(-1)[:, None].to(torch.int32)
+        return TP.greedy(logits)
+
+    def local(x):
+        return x.to_local() if tp is not None else x
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    n_prefill = read_launches()["flash_attention"]
+    out_logits, out_tokens = [whole(logits)], []
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(p["decode_steps"]):
+        nxt = greedy(logits)
+        out_tokens.append(local(nxt).cpu())
+        logits, caches = decode(params, nxt, caches, p["prompt"] + step)
+        out_logits.append(whole(logits))
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    out_tokens.append(local(greedy(logits)).cpu())
+    return dict(logits=out_logits, tokens=out_tokens, prefill_s=t_prefill,
+                decode_s=t_decode, prefill_flash=n_prefill,
+                decode_flash=read_launches()["flash_attention"])
+
+
+def _tp_train(ts, params, opt, batch) -> dict:
+    """(b): one step; its loss, gradient norm, seconds, peak memory and
+    flash launches."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, _, met = ts(params, opt, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    value = {k: float(v.to_local() if isinstance(v, DTensor) else v)
+             for k, v in met.items() if k in ("loss", "grad_norm")}
+    return dict(value, seconds=seconds,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                flash_fwd=launches["flash_attention"],
+                flash_bwd=launches["flash_attention_bwd"])
+
+
+def _tp_worker(rank: int, store: str) -> dict:
+    """Phase 32 in rank ``rank`` of a world of two processes on the one
+    card over gloo (its store the file ``store``): (a) and (b) on the
+    (1, 2) mesh; then, on rank 0, the same weights' one-device prefill,
+    decode and train step; every rank's results."""
+    import dataclasses
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
+                                          make_train_step, params_sds)
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import tensor_parallel as TP
+    from repro_torch.parallel.sharding import param_specs, place, to_named
+    p = TP_RUN
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=240))
+    try:
+        mesh = make_local_mesh(1, 2)
+        cfg = dataclasses.replace(get_config(p["config"]),
+                                  n_layers=p["n_layers"])
+        tp = TP.tensor_parallel(mesh, "model", "model")
+        def fresh():
+            return M.init_params(cfg, torch.Generator("cuda").manual_seed(
+                p["seed"]))
+        params = fresh()
+        psds = params_sds(cfg, torch.float32)
+        pspecs = param_specs(cfg, psds)
+        placed = place(params, to_named(mesh, pspecs))
+        layout = dict(tree.paths(TP.layout(cfg, psds, pspecs, tp)))
+        sizes = {k: v.numel() * 4 for k, v in tree.paths(psds)}
+        held = sum(t.to_local().numel() * t.element_size()
+                   for t in tree.leaves(placed))
+        split = sum(n for k, n in sizes.items() if layout[k] == "shard")
+        out = dict(rank=rank, held=held, split=split,
+                   replicated=sum(sizes.values()) - split,
+                   whole=[k for k, v in layout.items() if v == "whole"],
+                   wq_local=tuple(placed["layers"][0]["attn"]["wq"]
+                                  .to_local().shape))
+        L, B = p["prompt"] + p["decode_steps"], p["batch"]
+        tokens = np.random.default_rng(p["seed"]).integers(
+            0, cfg.vocab, (B, p["prompt"]))
+        cells = (ShapeCell("prefill", L, B, "prefill"),
+                 ShapeCell("decode", L, B, "decode"),
+                 ShapeCell("train", p["train_tokens"], 1, "train"))
+        perf = M.PerfConfig(remat=p["remat"], accum_steps=1)
+        batch = SyntheticLM(cfg.vocab, p["train_tokens"], 1,
+                            seed=p["seed"]).microbatched(0, 1)
+
+        def steps(m):
+            return (make_prefill_step(cfg, cells[0], m,
+                                      dtype=torch.float32)[0],
+                    make_decode_step(cfg, cells[1], m,
+                                     dtype=torch.float32)[0],
+                    make_train_step(cfg, cells[2], m, perf=perf,
+                                    dtype=torch.float32)[0])
+        pre, dec, ts = steps(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        out["serve"] = _tp_serve(pre, dec, placed, tokens, tp)
+        out["serve"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.empty_cache()
+        opt = {"m": tree.map_(torch.zeros_like, placed),
+               "v": tree.map_(torch.zeros_like, placed),
+               "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+        out["train"] = _tp_train(ts, placed, opt, batch)
+        # placing a replicated leaf keeps its storage, which the step
+        # updated: the one-device run takes the weights anew
+        del placed, opt, pre, dec, ts, params
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            params = fresh()
+            pre, dec, ts = steps((torch.device("cuda", 0),))
+            out["one_serve"] = _tp_serve(pre, dec, params, tokens, None)
+            torch.cuda.empty_cache()
+            out["one_train"] = _tp_train(ts, params, adamw_init(params),
+                                         batch)
+            del params
+        torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def start_tensor_parallel():
+    """Phase 32's two ranks started in spawned processes on the card,
+    beside phase 26 and the other lanes: (the workers, their store's
+    directory)."""
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    return _Workers(_tp_worker, [(r, f"{tmp}/store") for r in range(2)]), tmp
+
+
+@phase("32 tensor-parallel compute over model")
+def tensor_parallel_phase(results, lane):
+    import shutil
+    workers, tmp = lane
+    t_wait = time.perf_counter()
+    try:
+        ranks = workers.results()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    waited = time.perf_counter() - t_wait
+    p = TP_RUN
+    n = p["n_layers"]
+    one_s, one_t = ranks[0]["one_serve"], ranks[0]["one_train"]
+    scale = max(float(x.abs().max()) for x in one_s["logits"])
+    out = {"ranks": [], "waited_s": waited, "card": results["card"]}
+    for r in ranks:
+        s, t = r["serve"], r["train"]
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(s["logits"], one_s["logits"]))
+        same = all(bool((a == b).all())
+                   for a, b in zip(s["tokens"], one_s["tokens"]))
+        # wq's columns of 16 of the 32 heads of 64
+        check(not r["whole"] and r["wq_local"] == (2048, 1024)
+              and r["held"] == r["split"] // 2 + r["replicated"],
+              f"phase 32 rank {r['rank']}: holds {r['held']} bytes of "
+              f"weights (split {r['split']}, replicated {r['replicated']}), "
+              f"wq {r['wq_local']}, gathered whole {r['whole']}")
+        check(same and err <= TP_LOGITS_RTOL * scale,
+              f"phase 32 (a) rank {r['rank']}: logits {err:.3e} from the "
+              f"one-device step's (largest {scale:.3f}), tokens equal: "
+              f"{same}")
+        check(s["prefill_flash"] == n and s["decode_flash"] == 0,
+              f"phase 32 (a) rank {r['rank']}: flash launches prefill "
+              f"{s['prefill_flash']} (expected {n}), decode "
+              f"{s['decode_flash']}")
+        gap_loss = abs(t["loss"] - one_t["loss"]) / abs(one_t["loss"])
+        gap_gn = abs(t["grad_norm"] - one_t["grad_norm"]) \
+            / abs(one_t["grad_norm"])
+        check(gap_loss <= TP_LOSS_RTOL and gap_gn <= TP_GNORM_RTOL,
+              f"phase 32 (b) rank {r['rank']}: loss {t['loss']} vs "
+              f"{one_t['loss']} (rel {gap_loss:.2e}), grad_norm "
+              f"{t['grad_norm']} vs {one_t['grad_norm']} (rel {gap_gn:.2e})")
+        n_fwd = n * (2 if p["remat"] != "none" else 1)
+        check((t["flash_fwd"], t["flash_bwd"]) == (n_fwd, n),
+              f"phase 32 (b) rank {r['rank']}: flash launches forward "
+              f"{t['flash_fwd']}, backward {t['flash_bwd']} (expected "
+              f"{n_fwd}, {n})")
+        out["ranks"].append(dict(
+            held_bytes=r["held"], split_bytes=r["split"],
+            replicated_bytes=r["replicated"], logits_err=err,
+            prefill_s=s["prefill_s"], decode_s=s["decode_s"],
+            serve_peak_gib=s["peak_gib"], train=t,
+            gaps=dict(loss=gap_loss, grad_norm=gap_gn),
+            launches=dict(prefill=s["prefill_flash"],
+                          train_fwd=t["flash_fwd"],
+                          train_bwd=t["flash_bwd"])))
+        say(f"  rank {r['rank']}: holds {r['held'] / 2 ** 30:.3f} GiB of "
+            f"weights (the split {r['split'] / 2 ** 30:.3f} GiB halved, "
+            f"{r['replicated'] / 2 ** 20:.2f} MiB replicated; wq "
+            f"{r['wq_local']}: 16 heads); (a) prefill {p['batch']} x "
+            f"{p['prompt']} {s['prefill_s']:.3f} s ({n} flash launches), "
+            f"{p['decode_steps']} greedy steps {s['decode_s']:.3f} s "
+            f"({s['decode_s'] / p['decode_steps'] * 1e3:.1f} ms a step), "
+            f"peak {s['peak_gib']:.2f} GiB; logits {err:.3e} from the "
+            f"one-device step's (largest {scale:.3f}), tokens equal; (b) "
+            f"1 x {p['train_tokens']} tokens {t['seconds']:.3f} s, loss "
+            f"rel {gap_loss:.2e}, grad_norm rel {gap_gn:.2e}, flash "
+            f"{t['flash_fwd']} forward, {t['flash_bwd']} backward, peak "
+            f"{t['peak_gib']:.2f} GiB")
+    say(f"  one device (rank 0): prefill {one_s['prefill_s']:.3f} s, "
+        f"decode {one_s['decode_s']:.3f} s, train step "
+        f"{one_t['seconds']:.3f} s, peak {one_t['peak_gib']:.2f} GiB; "
+        f"{results['card']}; {waited:.2f} s waited for here")
+    results["tensor_parallel"] = out
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, r, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, **{k: r[k] for k in (
@@ -5577,12 +5856,15 @@ def main() -> int:
     train_lane = start_training_lane()
     lane = start_quick_lane()
     dry = start_dryrun()
+    tp_lane = start_tensor_parallel()
     try:
         shard_launches = sharded_paths(results)
         train_launches.update(training_lane(results, train_lane))
         serving_launches = serving_path(results, lane)
         dryrun_costing(results, dry)
+        tp = tensor_parallel_phase(results, tp_lane)
     finally:
+        tp_lane[0].stop()
         dry.stop()
         lane.stop()
         train_lane.stop()
@@ -5707,7 +5989,10 @@ def main() -> int:
                         "serve_decode_step_18":
                             results["serve_path"]["decode_step_launches"],
                         "training_30:mesh_step_1x1":
-                            train_launches["mesh"]["flash_attention"]}),
+                            train_launches["mesh"]["flash_attention"],
+                        **{f"tensor_parallel_32:rank{i}:{k}": r[
+                            "launches"][k] for i, r in enumerate(tp["ranks"])
+                           for k in ("prefill", "train_fwd")}}),
         _kernel_row("flash_attention_bwd.mha_backward",
                     f"{src}/flash_attention/csrc/flash_attention_bwd.cu",
                     "src/repro/models/attention.py:77",
@@ -5724,6 +6009,9 @@ def main() -> int:
                             train_launches["trainer"]["flash_attention_bwd"],
                         "training_30:mesh_step_1x1":
                             train_launches["mesh"]["flash_attention_bwd"],
+                        **{f"tensor_parallel_32:rank{i}:train": r[
+                            "launches"]["train_bwd"]
+                           for i, r in enumerate(tp["ranks"])},
                         **{f"training_30:reduced:{k}": v for k, v in
                            train_launches["reduced"].items()}}),
     ]

@@ -45,12 +45,16 @@ What a count means, per rank:
   runs inside its own op dispatch (the scalar norm of a sharded
   gradient) is not seen.
 
-On a ``DeviceMesh`` a step runs on each rank its data rows with the
-weights gathered whole, replicated over ``model`` (``launch/steps.py``;
-the tensor-parallel split is ROADMAP 3.7), and so the blocks are costed
-on one rank's rows and whole weights: nothing hides that the compute is
-replicated over ``model``.  The weight gathers and the gradient
-reduce-scatters are step-level, so their wire lands in ``embed_head``.
+On a ``DeviceMesh`` a step runs on each rank its data rows
+(``launch/steps.py``).  The dense and encdec families split the rest
+over ``model`` (tensor parallelism), so their blocks are costed on one
+rank's rows with its ``model`` shards of the weights, the block's
+collectives over ``model`` (and a decode's over the cache's sequence
+ranks) counted in its wire; the other families gather the weights whole
+and their blocks are costed with whole weights: nothing hides that
+their compute is replicated over ``model``.  The weight gathers over the
+data axes and the gradient reduce-scatters are step-level, so their
+wire lands in ``embed_head``.
 """
 from __future__ import annotations
 
@@ -67,7 +71,7 @@ from repro_torch import tree
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.launch import roofline as RF
 from repro_torch.launch.steps import (_local_perf, _retarget_cache_specs,
-                                      make_sharder, params_sds)
+                                      make_sharder, params_sds, tp_sharder)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -80,6 +84,7 @@ from repro_torch.models.model import (PerfConfig, _cross_attn, _cross_kv,
                                       _remat, _ssm_block, n_segments,
                                       positions_for)
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.parallel import tensor_parallel as TP
 from repro_torch.parallel.sharding import (P, axis_index, cache_specs,
                                            is_device_mesh, map_specs,
                                            param_specs, placements)
@@ -314,6 +319,18 @@ def _three(c: dict) -> dict:
     return {k: float(c[k]) for k in ("flops", "bytes", "wire")}
 
 
+def _model_shape(shape, spec, mesh, kind: str) -> tuple:
+    """The shape of rank 0's tensor of a weight placed by ``spec`` as a
+    tensor-parallel step computes with it: its ``model`` shard where
+    ``kind`` (``tensor_parallel.layout``) is ``"shard"``, else whole."""
+    out = list(shape)
+    if kind == "shard":
+        i = mesh.mesh_dim_names.index("model")
+        pl = placements(mesh, spec)[i]
+        out[pl.dim] = -(-out[pl.dim] // mesh.size(i))
+    return tuple(out)
+
+
 def _local_shape(shape, spec, mesh) -> tuple:
     """The shape of rank 0's shard of a tensor placed by ``spec`` on
     ``mesh`` (``torch.chunk`` sizes: the first shard the largest)."""
@@ -342,11 +359,20 @@ class ComponentCoster:
         self.multi_pod = multi_pod
         self.dtype = dtype
         tiny = cell.kind != "train" and cell.global_batch < 16
-        self.shd = make_sharder(mesh, multi_pod, tiny_batch=tiny,
-                                parallelism=perf.parallelism)
+        self.shd = tp_sharder(cfg, mesh, make_sharder(
+            mesh, multi_pod, tiny_batch=tiny, parallelism=perf.parallelism))
         self.psds = psds if psds is not None else params_sds(cfg, dtype)
         self.pspecs = pspecs if pspecs is not None \
             else param_specs(cfg, self.psds, multi_pod)
+        # what a rank computes with: its model shards under tensor
+        # parallelism, else the whole weights
+        self.compute_sds = self.psds
+        if self.shd.tp is not None:
+            layout = TP.layout(cfg, self.psds, self.pspecs, self.shd.tp)
+            self.compute_sds = map_specs(
+                lambda _, p, s, k: _meta(_model_shape(p.shape, s, mesh, k),
+                                         p.dtype),
+                self.psds, self.pspecs, layout)
         # the data ranks split the batch: one rank costs its rows
         self.n_data = 1
         if is_device_mesh(mesh) and self.shd.data_axes is not None:
@@ -363,8 +389,9 @@ class ComponentCoster:
 
     # ------------------------------------------------------------ helpers
     def _layer(self, key: str):
-        """One layer's parameters of stack ``key`` (on ``"meta"``)."""
-        return self.psds[key][0]
+        """One layer's parameters of stack ``key`` as a rank computes
+        with them (on ``"meta"``)."""
+        return self.compute_sds[key][0]
 
     def _count(self, fn: Callable, *args) -> dict:
         return _three(cost_of(fn, *args))
@@ -490,7 +517,8 @@ class ComponentCoster:
         groups = self.local_perf.moe_groups
         pos = S - 1          # the decode position: any int below S
         csds = SV.init_caches(cfg, B, S, self.dtype,
-                              kv_quant=self.perf.kv_quant, device="meta")
+                              kv_quant=self.perf.kv_quant, device="meta",
+                              shd=shd)
         x_sds = _meta((B, 1 if decode else S, cfg.d_model), self.dtype)
         out = {}
 
@@ -594,10 +622,12 @@ class ComponentCoster:
                 shd, cache, chunk=self.perf.attn_chunk)
             x = x + h
             enc_pos = positions_for(B, enc_out.shape[1], x.device)
-            kv = _cross_kv(lp["cross_attn"], enc_out, cfg)
+            kv = _cross_kv(lp["cross_attn"], enc_out, cfg, shd, whole=True)
             x = x + _cross_attn(lp["cross_attn"], _norm(x, lp["ln2"], cfg),
                                 enc_out, positions, enc_pos, cfg, shd, kv)
             x = x + gelu_mlp(lp["mlp"], _norm(x, lp["ln3"], cfg), shd)
+            if shd.tp is not None:
+                kv = tuple(shd.tp.kv_all(t, cfg) for t in kv)
             ck.copy_(kv[0])
             cv.copy_(kv[1])
             return x

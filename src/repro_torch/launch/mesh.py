@@ -10,7 +10,8 @@ init_process_group`` with its address, world size and rank).
 
 The reference's target is 256 TPU v5e chips a pod as a 16 x 16 data x
 model torus, 2 pods multi-pod.  The port places storage on such a mesh
-by the reference's specs and computes data-parallel, replicated over
+by the reference's specs, splits the batch over the data axes and, for
+the dense and encdec families, the heads, ``d_ff`` and vocabulary over
 ``model`` (``launch/steps.py``).  Without a process group the local 1 x 1
 mesh is the one-device mesh ``(device,)``, the tuple
 ``parallel/sharding.py`` uses for the case batch.

@@ -15,13 +15,23 @@ shardings, so the step makes three things explicit:
 
 - storage: parameters, optimizer moments and caches are ``DTensor`` s
   placed by the reference's spec trees (``parallel.sharding``);
-- compute: each rank gathers the weights with ``full_tensor()`` and runs
-  the whole model on the batch rows of its coordinate on the batch's
-  data axes, replicated over the other mesh axes (``model``); there is
-  no tensor-parallel split of activations;
-- results: logits and caches are placed back by the reference's output
-  specs; gradients reach their shards by ``Partial`` -> ``Shard``
-  (a reduce-scatter), averaged over the data ranks.
+- compute: each rank runs the batch rows of its coordinate on the
+  batch's data axes.  The ``dense`` and ``encdec`` families split the
+  rest over ``model`` as the reference's specs do (Megatron tensor
+  parallelism, ``parallel/tensor_parallel.py``): each weight is gathered
+  over the data axes only and keeps its ``model`` shard, so a rank
+  computes its own heads, ``d_ff`` columns and vocabulary rows, and its
+  decode caches hold its own sequence slots; an attention weight whose
+  shards do not line up with the ranks' heads is gathered whole over
+  ``model`` and sliced (``tensor_parallel.layout``).  The ``moe``,
+  ``ssm`` and ``hybrid`` families gather every weight whole and run the
+  model replicated over ``model``; so does ``parallelism == "fsdp"``,
+  whose batch spans the whole mesh;
+- results: logits (the rank's vocabulary columns) and caches are placed
+  by the reference's output specs; gradients reach their shards from
+  ``Partial`` over the data axes (and over ``model`` for a weight
+  gathered whole there) by a reduce-scatter, averaged over the data
+  ranks.
 
 A MoE config routes within each rank's rows, so its ``moe_groups`` must
 be a multiple of the number of data ranks: each rank takes its share of
@@ -44,6 +54,7 @@ from repro_torch.models.layers import NOSHARD, Sharder, f32_matmul
 from repro_torch.models.model import PerfConfig
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.adamw import global_norm
+from repro_torch.parallel import tensor_parallel as TP
 from repro_torch.parallel.sharding import (NamedSharding, P, axis_index,
                                            cache_specs, gather,
                                            is_device_mesh, map_specs,
@@ -70,6 +81,16 @@ def make_sharder(mesh, multi_pod: bool, tiny_batch: bool = False,
                  else ("data", "model"))
         return Sharder(mesh=mesh, data_axes=whole, model_axes=None)
     return Sharder(mesh=mesh, data_axes=data, model_axes="model")
+
+
+def tp_sharder(cfg: ArchConfig, mesh, shd: Sharder) -> Sharder:
+    """``shd`` with the tensor-parallel context of ``mesh`` 's ``model``
+    axis for the families that split over it (``TP.FAMILIES``), where
+    that axis has several ranks; ``shd`` itself otherwise."""
+    if cfg.family not in TP.FAMILIES or not is_device_mesh(mesh):
+        return shd
+    return dataclasses.replace(shd, tp=TP.tensor_parallel(
+        mesh, shd.model_axes, shd.seq_axes))
 
 
 def params_sds(cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
@@ -198,6 +219,19 @@ def _local_rows(x, ns: NamedSharding, data_axes, dev) -> torch.Tensor:
     return _rows(_to(x, dev), ns.mesh, ns.spec, data_axes).clone()
 
 
+def _placed_local(local: torch.Tensor, ns: NamedSharding, shape):
+    """This rank's shard ``local`` of a tensor of ``shape`` placed by
+    ``ns``."""
+    from torch.distributed.tensor import DTensor
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.insert(0, n)
+        n *= size
+    return DTensor.from_local(local, ns.mesh, ns.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
 def _replicated(mesh, x: torch.Tensor):
     from torch.distributed.tensor import DTensor, Replicate
     return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
@@ -261,6 +295,11 @@ def make_train_step(cfg: ArchConfig, cell: ShapeCell, mesh, *,
     ``adamw_update``.  It returns (params, opt, metrics {"loss": the mean
     over microbatches, "grad_norm", "lr"}), params and moments updated in
     place.  Forward and backward run without TF32 (``f32_matmul``).
+    ``train_step.grads(params, batch)`` is its first half: (the gradient
+    of each parameter in a tree like ``params``, placed as the parameter
+    on a ``DeviceMesh``; the mean loss).  On a ``DeviceMesh``
+    ``train_step.layout`` is ``tensor_parallel.layout`` of the
+    parameters: how the step gathers each.
 
     On the one-device mesh that is all.  On a ``DeviceMesh`` params and
     moments are ``DTensor`` s placed by ``param_specs`` (tensors given
@@ -286,22 +325,27 @@ def make_train_step(cfg: ArchConfig, cell: ShapeCell, mesh, *,
     _one_device(mesh, multi_pod)
     batch_sds.update(_batch_extras_sds(cfg, lead, dtype, "data")[0])
 
-    def train_step(params, opt, batch):
+    def grads(params, batch):
         batch = {k: _to(v, dev) for k, v in batch.items()}
         leaves = tree.leaves(params)
         gsum, losses = _micro_grads(params, leaves, batch, accum, cfg,
                                     NOSHARD, perf)
-        # the span names the optimizer's kernels in a profile
-        with torch.no_grad(), torch.profiler.record_function("adamw_update"):
+        with torch.no_grad():
             for s in gsum:
                 s.div_(accum)
-            it = iter(gsum)
-            grads = tree.map_(lambda _: next(it), params)
-            del gsum, it
-            params, opt, metrics = adamw_update(params, grads, opt, opt_cfg)
-            metrics["loss"] = torch.stack(losses).mean()
+        it = iter(gsum)
+        return tree.map_(lambda _: next(it), params), \
+            torch.stack(losses).mean()
+
+    def train_step(params, opt, batch):
+        g, loss = grads(params, batch)
+        # the span names the optimizer's kernels in a profile
+        with torch.no_grad(), torch.profiler.record_function("adamw_update"):
+            params, opt, metrics = adamw_update(params, g, opt, opt_cfg)
+            metrics["loss"] = loss
         return params, opt, metrics
 
+    train_step.grads = grads
     return train_step, (psds, osds, batch_sds)
 
 
@@ -309,6 +353,7 @@ def _mesh_train_step(cfg, mesh, perf, opt_cfg, multi_pod, dtype, dev,
                      psds, osds, batch_sds):
     from torch.distributed.tensor import DTensor, Partial, Replicate
     shd = make_sharder(mesh, multi_pod, parallelism=perf.parallelism)
+    shd = tp_sharder(cfg, mesh, shd)
     data = shd.data_axes
     accum = perf.accum_steps
     pspecs = param_specs(cfg, psds, multi_pod)
@@ -328,43 +373,71 @@ def _mesh_train_step(cfg, mesh, perf, opt_cfg, multi_pod, dtype, dev,
                  ((data,) if isinstance(data, str) else data)}
     partial_pl = [Partial() if i in data_dims else Replicate()
                   for i in range(mesh.ndim)]
+    layout = TP.layout(cfg, psds, pspecs, shd.tp)
+    model_dim = names.index("model") if shd.tp is not None else None
+
+    def grad_placements(p, kind):
+        """A gradient's placements: partial over the data axes; over
+        ``model`` the weight's shard where the rank kept it, partial
+        where the weight was gathered whole, else replicated."""
+        pl = list(partial_pl)
+        if model_dim is not None and kind != "replicated":
+            pl[model_dim] = p.placements[model_dim] if kind == "shard" \
+                else Partial()
+        return pl
+
+    def grads(params, batch):
+        params = place(params, pnamed)
+        batch = {k: _rows(_to(v, dev), mesh, batch_specs[k], data)
+                 for k, v in batch.items()}
+        if shd.tp is None:
+            local = gather(params)
+        else:
+            local = gather(params, "model", layout)
+        gsum, losses = _micro_grads(local, tree.leaves(local), batch, accum,
+                                    cfg, shd, lperf)
+        del local
+        with torch.no_grad():
+            shards = []
+            # the layout in the order of the leaves of ``params``
+            kinds = tree.leaves(tree.map_(lambda _, k: k, params, layout))
+            for s, p, kind in zip(gsum, tree.leaves(params), kinds):
+                s.div_(accum)
+                g = DTensor.from_local(s, mesh, grad_placements(p, kind),
+                                       run_check=False, shape=p.shape,
+                                       stride=p.stride())
+                shards.append(g.redistribute(mesh, p.placements))
+            del gsum
+            # the mean over the data ranks, in the shards themselves
+            for g in shards:
+                g.to_local().div_(n_data)
+            loss = DTensor.from_local(torch.stack(losses).mean(), mesh,
+                                      partial_pl, run_check=False)
+            loss = loss.full_tensor() / n_data
+        it = iter(shards)
+        return tree.map_(lambda _: next(it), params), loss
 
     def train_step(params, opt, batch):
         params = place(params, pnamed)
         opt = place(opt, onamed)
-        batch = {k: _rows(_to(v, dev), mesh, batch_specs[k], data)
-                 for k, v in batch.items()}
-        full = gather(params)
-        gsum, losses = _micro_grads(full, tree.leaves(full), batch, accum,
-                                    cfg, shd, lperf)
-        del full
+        g, loss = grads(params, batch)
         with torch.no_grad(), torch.profiler.record_function("adamw_update"):
-            shards = []
-            for s, p in zip(gsum, tree.leaves(params)):
-                s.div_(accum)
-                g = DTensor.from_local(s, mesh, partial_pl, run_check=False)
-                shards.append(g.redistribute(mesh, p.placements))
-            del gsum
-            # the mean over the data ranks, in the shards themselves
-            grads = [g.to_local().div_(n_data) for g in shards]
-            gnorm = global_norm(shards).full_tensor()
-            it = iter(grads)
-            grads = tree.map_(lambda _: next(it), params)
-            del shards, it
+            gnorm = global_norm(tree.leaves(g)).full_tensor()
+            g = tree.map_(lambda x: x.to_local(), g)
             local = tree.map_(lambda x: x.to_local(), params)
             lopt = {"m": tree.map_(lambda x: x.to_local(), opt["m"]),
                     "v": tree.map_(lambda x: x.to_local(), opt["v"]),
                     "step": opt["step"].to_local()}
-            _, lopt, metrics = adamw_update(local, grads, lopt, opt_cfg,
+            _, lopt, metrics = adamw_update(local, g, lopt, opt_cfg,
                                             grad_norm=gnorm)
-            loss = DTensor.from_local(torch.stack(losses).mean(), mesh,
-                                      partial_pl, run_check=False)
-            metrics["loss"] = loss.full_tensor() / n_data
+            metrics["loss"] = loss
         opt = {"m": opt["m"], "v": opt["v"],
                "step": _replicated(mesh, lopt["step"])}
         return params, opt, {k: _replicated(mesh, v)
                              for k, v in metrics.items()}
 
+    train_step.grads = grads
+    train_step.layout = layout
     return train_step, (psds, osds, batch_sds)
 
 
@@ -408,21 +481,33 @@ def make_prefill_step(cfg: ArchConfig, cell: ShapeCell, mesh, *,
 
     dev = _mesh_device(mesh, dev)
     data = shd.data_axes
+    shd = tp_sharder(cfg, mesh, shd)
     csds = SV.init_caches(cfg, B, S, dtype, kv_quant=perf.kv_quant,
                           device="meta")
     cnamed = to_named(mesh, _retarget_cache_specs(
         cache_specs(cfg, csds, multi_pod), shd))
     lnamed = NamedSharding(mesh, P(data, "model"))
     lperf = _local_perf(cfg, perf, axis_index(mesh, data)[1])
+    pspecs = param_specs(cfg, psds, multi_pod)
+    pnamed = to_named(mesh, pspecs)
+    layout = TP.layout(cfg, psds, pspecs, shd.tp)
 
     def prefill_step(params, batch):
         batch = {k: _rows(_to(v, dev), mesh, batch_specs[k], data)
                  for k, v in batch.items()}
-        logits, caches = SV.prefill(gather(params), batch, cfg, shd, lperf,
+        if shd.tp is None:
+            logits, caches = SV.prefill(gather(params), batch, cfg, shd,
+                                        lperf, max_seq=S)
+            return (_placed_rows(logits, lnamed, data),
+                    map_specs(lambda _, c, ns: _placed_rows(c, ns, data),
+                              caches, cnamed))
+        local = gather(place(params, pnamed), "model", layout)
+        logits, caches = SV.prefill(local, batch, cfg, shd, lperf,
                                     max_seq=S)
-        return (_placed_rows(logits, lnamed, data),
-                map_specs(lambda _, c, ns: _placed_rows(c, ns, data),
-                          caches, cnamed))
+        return (_placed_local(logits, lnamed, (B, M.vocab_padded(cfg))),
+                map_specs(lambda _, c, ns, sds: _placed_local(c, ns,
+                                                              sds.shape),
+                          caches, cnamed, csds))
 
     return prefill_step, (psds, batch_sds)
 
@@ -445,9 +530,10 @@ def make_decode_step(cfg: ArchConfig, cell: ShapeCell, mesh, *,
     caches).  On the one-device mesh
     it updates ``caches`` in place; on a ``DeviceMesh`` ``caches`` are
     placed by the retargeted ``cache_specs`` (as ``make_prefill_step``
-    returns them), each rank gathers the sequence of its batch rows, and
-    the step returns new caches placed as they came, and the logits by
-    ``P(data_axes, "model")``.
+    returns them) and the logits by ``P(data_axes, "model")``.  A
+    tensor-parallel step (module docstring) updates each rank's shards of
+    ``caches`` in place and returns them; the others gather the sequence
+    of each rank's batch rows and return new caches placed as they came.
     """
     dev = resolve_device(device)
     tiny = cell.global_batch < 16
@@ -472,23 +558,37 @@ def make_decode_step(cfg: ArchConfig, cell: ShapeCell, mesh, *,
 
     dev = _mesh_device(mesh, dev)
     data = shd.data_axes
+    shd = tp_sharder(cfg, mesh, shd)
     cnamed = to_named(mesh, _retarget_cache_specs(
         cache_specs(cfg, csds, multi_pod), shd))
     lnamed = NamedSharding(mesh, P(data, "model"))
     tnamed = NamedSharding(mesh, P(data, None))
     groups = _local_perf(cfg, perf, axis_index(mesh, data)[1]).moe_groups
+    pspecs = param_specs(cfg, psds, multi_pod)
+    pnamed = to_named(mesh, pspecs)
+    layout = TP.layout(cfg, psds, pspecs, shd.tp)
 
     def decode_step(params, tokens, caches, pos):
         tokens = _local_rows(tokens, tnamed, data, dev)
-        local = map_specs(lambda _, c, ns: _local_rows(c, ns, data, dev),
-                          caches, cnamed)
-        logits, local = SV.decode_step(gather(params), tokens, local,
-                                       int(pos), cfg, shd,
-                                       unroll=not perf.scan_layers,
-                                       moe_groups=groups)
-        return (_placed_rows(logits, lnamed, data),
-                map_specs(lambda _, c, ns: _placed_rows(c, ns, data),
-                          local, cnamed))
+        if shd.tp is None:
+            local = map_specs(lambda _, c, ns: _local_rows(c, ns, data, dev),
+                              caches, cnamed)
+            logits, local = SV.decode_step(gather(params), tokens, local,
+                                           int(pos), cfg, shd,
+                                           unroll=not perf.scan_layers,
+                                           moe_groups=groups)
+            return (_placed_rows(logits, lnamed, data),
+                    map_specs(lambda _, c, ns: _placed_rows(c, ns, data),
+                              local, cnamed))
+        # each rank's shards of the caches, updated in place
+        caches = place(caches, cnamed)
+        local = map_specs(lambda _, c: c.to_local(), caches)
+        params = gather(place(params, pnamed), "model", layout)
+        logits, _ = SV.decode_step(params, tokens, local, int(pos), cfg, shd,
+                                   unroll=not perf.scan_layers,
+                                   moe_groups=groups)
+        return _placed_local(logits, lnamed, (B, M.vocab_padded(cfg))), \
+            caches
 
     return decode_step, example
 

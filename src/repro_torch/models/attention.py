@@ -10,6 +10,14 @@ K/V tiles in either case, so ``chunk`` is accepted and changes nothing.
 Sliding-window attention uses a ring-buffer cache of window size W with an
 explicit per-slot position vector, so decode holds O(W) state.  The port
 updates a cache in place and returns the same dict.
+
+Under tensor parallelism (``shd.tp``, ``parallel/tensor_parallel.py``)
+a rank projects its own query heads and the KV heads they read, runs the
+flash kernel on them and sums its partial ``wo`` product over ``model``.
+Its cache holds every KV head for its own range of the sequence slots
+(the reference's ``kv_cache`` layout): prefill writes that range, and a
+decode step scores the rank's slots for every query head, reducing the
+softmax's max and sums over the cache's ``seq`` ranks (flash decoding).
 """
 from __future__ import annotations
 
@@ -22,6 +30,8 @@ from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models import rope as rope_mod
 from repro_torch.models.layers import (NOSHARD, Sharder, dense_init,
                                        init_device)
+from repro_torch.parallel.tensor_parallel import (copy_to_model,
+                                                  reduce_from_model)
 
 NEG = -1e30
 
@@ -46,20 +56,44 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
     return p
 
 
-def _project_qkv(params, x, cfg: ArchConfig, shd: Sharder):
+def _project_qkv(params, x, cfg: ArchConfig, shd: Sharder,
+                 whole: bool = False):
+    """q, k, v [B, S, heads, dh]: every head, or under tensor
+    parallelism the rank's query heads and the KV heads of
+    ``TensorParallel.kv_cols`` (every KV head with ``whole`` where the
+    weights are gathered whole)."""
     B, S, _ = x.shape
     dh = cfg.head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    tp = shd.tp
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    if tp is not None:
+        x = copy_to_model(x, tp)
+        wq = tp.q_cols(wq, cfg)
+        wk, wv = tp.kv_cols(wk, cfg, whole), tp.kv_cols(wv, cfg, whole)
+    q = x @ wq
+    k = x @ wk
+    v = x @ wv
     if cfg.qkv_bias:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    q = shd.btf(q).reshape(B, S, cfg.n_heads, dh)
-    k = k.reshape(B, S, cfg.n_kv_heads, dh)
-    v = v.reshape(B, S, cfg.n_kv_heads, dh)
+        bq, bk, bv = params["bq"], params["bk"], params["bv"]
+        if tp is not None:
+            bq = tp.q_cols(bq, cfg)
+            bk, bv = tp.kv_cols(bk, cfg, whole), tp.kv_cols(bv, cfg, whole)
+        q = q + bq
+        k = k + bk
+        v = v + bv
+    q = shd.btf(q).reshape(B, S, -1, dh)
+    k = k.reshape(B, S, -1, dh)
+    v = v.reshape(B, S, -1, dh)
     return q, k, v
+
+
+def _out_proj(params, out, cfg: ArchConfig, shd: Sharder):
+    """``out`` [B, S, heads·dh] through ``wo``: under tensor parallelism
+    the rank's rows, the partial products summed over ``model``."""
+    if shd.tp is None:
+        return shd.btd(out @ params["wo"])
+    return shd.btd(reduce_from_model(out @ shd.tp.q_rows(params["wo"], cfg),
+                                     shd.tp))
 
 
 def _rope(x, positions, cfg: ArchConfig):
@@ -85,10 +119,11 @@ def attn_train(params, x, positions, cfg: ArchConfig, shd: Sharder = NOSHARD,
     q, k, v = _project_qkv(params, x, cfg, shd)
     q = _rope(q, positions, cfg)
     k = _rope(k, positions, cfg)
+    if shd.tp is not None:
+        k, v = shd.tp.attn_kv(k, cfg), shd.tp.attn_kv(v, cfg)
     out = flash.mha(q, k, v, causal=causal, window=cfg.sliding_window)
     B, S = x.shape[:2]
-    out = out.reshape(B, S, -1) @ params["wo"]
-    return shd.btd(out)
+    return _out_proj(params, out.reshape(B, S, -1), cfg, shd)
 
 
 # ---------------------------------------------------------------------------
@@ -97,15 +132,18 @@ def attn_train(params, x, positions, cfg: ArchConfig, shd: Sharder = NOSHARD,
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.float32, quantized: bool = False,
-               device=None) -> dict:
+               device=None, shd: Sharder = NOSHARD) -> dict:
     """Ring buffer of W = sliding_window if set, else max_seq.
 
     quantized=True stores K/V as int8 with per-(token, head) symmetric
     scales (KIVI-style): the scales factor exactly out of both attention
     contractions, so the only approximation is the int8 rounding itself.
+    Under tensor parallelism K/V hold the rank's range of the W slots
+    (``TensorParallel.slots``); ``slot_pos`` holds all W.
     """
     W = min(cfg.sliding_window or max_seq, max_seq)
-    shape = (batch, W, cfg.n_kv_heads, cfg.head_dim)
+    s0, s1 = (0, W) if shd.tp is None else shd.tp.slots(W)
+    shape = (batch, s1 - s0, cfg.n_kv_heads, cfg.head_dim)
     slot_pos = torch.full((W,), -1, dtype=torch.int32, device=device)
     if quantized:
         return {
@@ -130,6 +168,12 @@ def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+def _slots(cache: dict, shd: Sharder) -> tuple[int, int]:
+    """The range of the W slots that ``cache`` 's K/V hold."""
+    W = cache["slot_pos"].shape[0]
+    return (0, W) if shd.tp is None else shd.tp.slots(W)
+
+
 def prefill_into_cache(params, x, positions, cfg: ArchConfig,
                        shd: Sharder = NOSHARD, cache: Optional[dict] = None,
                        chunk: Optional[int] = None):
@@ -137,10 +181,17 @@ def prefill_into_cache(params, x, positions, cfg: ArchConfig,
 
     Returns (out, cache).
     """
-    q, k, v = _project_qkv(params, x, cfg, shd)
+    tp = shd.tp
+    q, k, v = _project_qkv(params, x, cfg, shd, whole=cache is not None)
     q = _rope(q, positions, cfg)
     k = _rope(k, positions, cfg)
-    out = flash.mha(q, k, v, causal=True, window=cfg.sliding_window)
+    if tp is None:
+        out = flash.mha(q, k, v, causal=True, window=cfg.sliding_window)
+    else:
+        out = flash.mha(q, tp.attn_kv(k, cfg), tp.attn_kv(v, cfg),
+                        causal=True, window=cfg.sliding_window)
+        if cache is not None:
+            k, v = tp.kv_all(k, cfg), tp.kv_all(v, cfg)
     B, S = x.shape[:2]
     if cache is not None:
         if "k_q" in cache:
@@ -150,25 +201,30 @@ def prefill_into_cache(params, x, positions, cfg: ArchConfig,
         else:
             store = {"k": k, "v": v}
         W = cache["slot_pos"].shape[0]
+        s0, s1 = _slots(cache, shd)
         if S >= W:
             # keep the last W keys in ring layout: slot i <- position p,
             # p % W == i (prefill positions are contiguous, so this is a
-            # permutation of the tail slice)
+            # permutation of the tail slice); the cache holds slots
+            # [s0, s1)
             last_pos = positions[0, S - W:].to(torch.int32)      # [W]
             slots = (last_pos % W).long()
+            src = torch.empty_like(slots)
+            src[slots] = torch.arange(S - W, S, device=slots.device)
             for key, val in store.items():
-                cache[key][:, slots] = shd.kv_cache(
-                    val[:, S - W:].to(cache[key].dtype))
+                cache[key].copy_(shd.kv_cache(
+                    val[:, src[s0:s1]].to(cache[key].dtype)))
             cache["slot_pos"].fill_(-1)
             cache["slot_pos"][slots] = last_pos
         else:
             # prompt shorter than the window: slots [0, S) in order
+            n = max(min(s1, S) - s0, 0)
             for key, val in store.items():
                 cache[key].zero_()
-                cache[key][:, :S] = shd.kv_cache(val.to(cache[key].dtype))
+                cache[key][:, :n] = shd.kv_cache(
+                    val[:, s0:s0 + n].to(cache[key].dtype))
             cache["slot_pos"][:S] = positions[0].to(torch.int32)
-    out = out.reshape(B, S, -1) @ params["wo"]
-    return shd.btd(out), cache
+    return _out_proj(params, out.reshape(B, S, -1), cfg, shd), cache
 
 
 def attn_decode(params, x, cache: dict, pos: int, cfg: ArchConfig,
@@ -177,20 +233,32 @@ def attn_decode(params, x, cache: dict, pos: int, cfg: ArchConfig,
 
     Plain PyTorch, as the reference computes it outside any kernel.
     Writes the new key and value into ``cache`` in place and returns
-    (out [B, 1, d], cache).
+    (out [B, 1, d], cache).  Under tensor parallelism the query heads
+    and the new key and value are gathered over ``model``, the rank that
+    holds slot ``pos % W`` writes it, and each rank scores its slots for
+    every head: the softmax's max, then its sums Σp and Σp·v, reduce
+    over the cache's ``seq`` ranks before the rank's heads go through
+    its rows of ``wo``.
     """
     B = x.shape[0]
     dh = cfg.head_dim
-    q, k, v = _project_qkv(params, x, cfg, shd)
+    tp = shd.tp
+    q, k, v = _project_qkv(params, x, cfg, shd, whole=True)
     pos = int(pos)
     pos_b = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = _rope(q, pos_b, cfg)
     k = _rope(k, pos_b, cfg)
+    if tp is not None:
+        q = tp.all_gather(q, 2, cfg.n_heads)
+        k, v = tp.kv_all(k, cfg), tp.kv_all(v, cfg)
 
     W = cache["slot_pos"].shape[0]
     slot = pos % W
     spos = cache["slot_pos"]
     spos[slot] = pos
+    s0, s1 = _slots(cache, shd)
+    own = s0 <= slot < s1
+    spos = spos[s0:s1]
 
     hkv = cfg.n_kv_heads
     rep = cfg.n_heads // hkv
@@ -199,10 +267,11 @@ def attn_decode(params, x, cache: dict, pos: int, cfg: ArchConfig,
     if quant:
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
-        cache["k_q"][:, slot] = kq[:, 0]
-        cache["v_q"][:, slot] = vq[:, 0]
-        cache["k_s"][:, slot] = ks[:, 0]
-        cache["v_s"][:, slot] = vs[:, 0]
+        if own:
+            cache["k_q"][:, slot - s0] = kq[:, 0]
+            cache["v_q"][:, slot - s0] = vq[:, 0]
+            cache["k_s"][:, slot - s0] = ks[:, 0]
+            cache["v_s"][:, slot - s0] = vs[:, 0]
         ck, cv = cache["k_q"], cache["v_q"]
         # the reference contracts in bf16 with f32 accumulation: bf16
         # products are exact in f32, so round q to bf16 and multiply in f32
@@ -211,8 +280,9 @@ def attn_decode(params, x, cache: dict, pos: int, cfg: ArchConfig,
         # the per-token scale factors exactly out of the contraction
         s = s * cache["k_s"].movedim(1, 2)[:, :, None] * dh ** -0.5
     else:
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
+        if own:
+            cache["k"][:, slot - s0] = k[:, 0]
+            cache["v"][:, slot - s0] = v[:, 0]
         ck, cv = cache["k"], cache["v"]
         s = torch.einsum("bhrd,bkhd->bhrk", qf.float(), ck.float()) \
             * dh ** -0.5
@@ -222,6 +292,8 @@ def attn_decode(params, x, cache: dict, pos: int, cfg: ArchConfig,
         valid &= spos > pos - cfg.sliding_window
     s = torch.where(valid[None, None, None], s, NEG)
     m = s.amax(dim=-1, keepdim=True)
+    if tp is not None:
+        m = tp.all_reduce(m, "max", seq=True)
     p = torch.exp(s - m)
     p = torch.where(valid[None, None, None], p, 0.0)
     if quant:
@@ -231,6 +303,14 @@ def attn_decode(params, x, cache: dict, pos: int, cfg: ArchConfig,
     else:
         out = torch.einsum("bhrk,bkhd->bhrd", p.to(cv.dtype),
                            cv).float()
-    out = out / p.sum(dim=-1, keepdim=True)
-    out = out.reshape(B, 1, cfg.n_heads * dh).to(x.dtype) @ params["wo"]
-    return shd.btd(out), cache
+    l = p.sum(dim=-1, keepdim=True)
+    if tp is not None:
+        # Σp·v and Σp over the sequence's ranks, in one collective
+        both = tp.all_reduce(torch.cat([out, l], dim=-1), seq=True)
+        out, l = both[..., :dh], both[..., dh:]
+    out = (out / l).reshape(B, cfg.n_heads, dh)
+    if tp is not None:
+        h0, h1 = tp.heads(cfg.n_heads)
+        out = out[:, h0:h1]
+    out = out.reshape(B, 1, -1).to(x.dtype)
+    return _out_proj(params, out, cfg, shd), cache

@@ -14,6 +14,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.tensor_parallel import (copy_to_model,
+                                                  reduce_from_model)
+
 
 # ---------------------------------------------------------------------------
 # Sharder: the reference's sharding hooks and axis names
@@ -30,16 +33,22 @@ class Sharder:
     whole mesh).  ``mesh`` is the ``DeviceMesh`` the step builders place
     storage on (``launch.steps``), ``None`` off a mesh.
 
-    The reference constrains activation layouts with these hooks.  The
-    port's step runs the whole model on each rank (compute is data
-    parallel and replicated over ``model``; see ``launch/steps.py``), so
-    every hook returns its argument and the fields steer where the step
-    splits the batch and places its results.
+    The reference constrains activation layouts with these hooks and
+    lets XLA split the compute.  The port writes the split out: ``tp``
+    is the tensor-parallel context (``parallel.tensor_parallel.
+    TensorParallel``) of a dense or encdec step on a mesh whose
+    ``model`` axis has more than one rank, ``None`` otherwise.  With it
+    the attention, MLP, embedding, head and loss run on the rank's heads,
+    ``d_ff`` columns and vocabulary rows, the decode caches on its
+    sequence slots; without it a rank runs the whole model on its batch
+    rows (replicated over ``model``).  The hooks return their argument:
+    the layouts they name are what ``tp`` computes.
     """
     mesh: Any = None
     data_axes: Any = "data"
     model_axes: Any = "model"
     seq_axes: Any = None          # defaults to model_axes
+    tp: Any = None
 
     def __post_init__(self):
         if self.seq_axes is None:
@@ -157,10 +166,14 @@ def swiglu_init(gen: torch.Generator, d: int, d_ff: int,
 
 def swiglu(params: dict, x: torch.Tensor, shd: Sharder = NOSHARD
            ) -> torch.Tensor:
+    """Column-parallel gate and up, row-parallel down: under tensor
+    parallelism the weights are the rank's ``d_ff`` columns (rows of
+    ``w_down``) and the partial outputs sum over ``model``."""
+    x = copy_to_model(x, shd.tp)
     g = shd.btf(x @ params["w_gate"])
     u = shd.btf(x @ params["w_up"])
     h = F.silu(g) * u
-    return shd.btd(h @ params["w_down"])
+    return shd.btd(reduce_from_model(h @ params["w_down"], shd.tp))
 
 
 def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int,
@@ -177,6 +190,11 @@ def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int,
 def gelu_mlp(params: dict, x: torch.Tensor, shd: Sharder = NOSHARD
              ) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
+    x = copy_to_model(x, shd.tp)
     h = shd.btf(F.gelu(x @ params["w_up"] + params["b_up"],
                        approximate="tanh"))
-    return shd.btd(h @ params["w_down"] + params["b_down"])
+    # b_down is added once, after the ranks' partial sums
+    y = h @ params["w_down"]
+    if shd.tp is None:
+        return shd.btd(y + params["b_down"])
+    return shd.btd(reduce_from_model(y, shd.tp) + params["b_down"])

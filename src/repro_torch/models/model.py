@@ -21,6 +21,13 @@ block wrapped in ``torch.utils.checkpoint`` as ``PerfConfig.remat`` asks
 the hybrid's shared block, whisper's encoder, decoder and cross
 attention) goes through the flash kernel, whose gradient is the backward
 kernel; MLA's attention stays plain PyTorch (``models/mla.py``).
+
+Under tensor parallelism (``Sharder.tp``: the dense and encdec families
+on a mesh whose ``model`` axis has several ranks) each rank holds its
+vocabulary rows of ``embed`` and columns of ``lm_head``: the embedding
+sums the ranks' lookups, ``forward`` returns the rank's vocabulary
+columns of the logits, and ``loss_fn`` reduces the cross-entropy's max
+and sums over ``model`` (``parallel/tensor_parallel.py``).
 """
 from __future__ import annotations
 
@@ -43,14 +50,16 @@ from repro_torch.models.layers import (NOSHARD, Sharder, dense_init,
                                        gelu_mlp_init, init_device, layernorm,
                                        rmsnorm, rmsnorm_init, swiglu,
                                        swiglu_init)
+from repro_torch.parallel import tensor_parallel as TP
 
 
 @dataclasses.dataclass(frozen=True)
 class PerfConfig:
     """The reference's per-cell knobs, in its order.  ``parallelism``
     picks how a train step on a ``DeviceMesh`` splits its batch
-    (``launch.steps.make_sharder``: ``"fsdp"`` over the whole mesh,
-    ``"2d"`` over the data axes; compute over ``model`` is replicated).
+    (``launch.steps.make_sharder``: ``"fsdp"`` over the whole mesh, with
+    compute replicated over ``model``; ``"2d"`` over the data axes, with
+    the dense and encdec families' compute split over ``model``).
     ``scan_layers`` is accepted and changes nothing (the port loops over
     layers in Python either way)."""
     remat: str = "full"                # none | full | dots | dots_nb
@@ -206,12 +215,12 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 # blocks (forward and prefill)
 # ===========================================================================
 
-def embed_tokens(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def embed_tokens(params: dict, batch: dict, cfg: ArchConfig,
+                 shd: Sharder = NOSHARD) -> torch.Tensor:
     """Token embeddings, the first ``n_prefix_embeds`` positions replaced
-    by the stub frontend's ``prefix_embeds`` where the batch has them."""
-    # embedding(): its gradient on the card sums each row's repeats in a
-    # fixed order (a training step must repeat bit for bit)
-    x = torch.nn.functional.embedding(batch["tokens"], params["embed"])
+    by the stub frontend's ``prefix_embeds`` where the batch has them
+    (whole on every rank under tensor parallelism)."""
+    x = TP.embed(params["embed"], batch["tokens"], shd.tp)
     if cfg.n_prefix_embeds and "prefix_embeds" in batch:
         pe = batch["prefix_embeds"].to(x.dtype)
         x = torch.cat([pe, x[:, cfg.n_prefix_embeds:]], dim=1)
@@ -279,25 +288,39 @@ def encode(params, audio_embeds, cfg: ArchConfig, shd: Sharder = NOSHARD,
     return _norm(x, params["enc_norm"], cfg)
 
 
-def _cross_kv(p, enc_out, cfg: ArchConfig):
-    """The cross attention's keys and values [B, F, Hkv, dh] from the
-    encoder output."""
+def _cross_kv(p, enc_out, cfg: ArchConfig, shd: Sharder = NOSHARD,
+              whole: bool = False):
+    """The cross attention's keys and values [B, F, heads, dh] from the
+    encoder output: every KV head, or under tensor parallelism those of
+    ``TensorParallel.kv_cols`` (``whole`` as there)."""
     B, F, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(B, F, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ p["wv"]).reshape(B, F, cfg.n_kv_heads, cfg.head_dim)
+    wk, wv = p["wk"], p["wv"]
+    if shd.tp is not None:
+        enc_out = TP.copy_to_model(enc_out, shd.tp)
+        wk = shd.tp.kv_cols(wk, cfg, whole)
+        wv = shd.tp.kv_cols(wv, cfg, whole)
+    k = (enc_out @ wk).reshape(B, F, -1, cfg.head_dim)
+    v = (enc_out @ wv).reshape(B, F, -1, cfg.head_dim)
     return k, v
 
 
 def _cross_attn(p, xq, enc_out, positions, enc_pos, cfg, shd, kv=None):
     """Decoder queries against every encoder frame (no mask, no rotary):
-    one non-causal flash call.  ``kv`` are ``_cross_kv``'s where the
-    caller has them."""
+    one non-causal flash call, on the rank's heads under tensor
+    parallelism.  ``kv`` are ``_cross_kv``'s where the caller has
+    them."""
     B, S, _ = xq.shape
-    q = (xq @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k, v = kv if kv is not None else _cross_kv(p, enc_out, cfg)
+    tp = shd.tp
+    wq = p["wq"]
+    if tp is not None:
+        xq = TP.copy_to_model(xq, tp)
+        wq = tp.q_cols(wq, cfg)
+    q = (xq @ wq).reshape(B, S, -1, cfg.head_dim)
+    k, v = kv if kv is not None else _cross_kv(p, enc_out, cfg, shd)
+    if tp is not None:
+        k, v = tp.attn_kv(k, cfg), tp.attn_kv(v, cfg)
     out = flash.mha(q, k, v, causal=False)
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
-    return shd.btd(out)
+    return attn_mod._out_proj(p, out.reshape(B, S, -1), cfg, shd)
 
 
 def _dec_block(lp, x, enc_out, positions, enc_pos, cfg, shd, chunk):
@@ -339,10 +362,11 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
             shd: Sharder = NOSHARD, perf: PerfConfig = PerfConfig()
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] (and ``audio_embeds`` [B, F, d] for encdec) ->
-    (logits [B, S, vocab_p], aux: the MoE load-balance loss summed over
-    the MoE layers, 0 for the other families)."""
+    (logits [B, S, vocab_p] (the rank's vocab_p / m columns under tensor
+    parallelism), aux: the MoE load-balance loss summed over the MoE
+    layers, 0 for the other families)."""
     B, S = batch["tokens"].shape
-    x = shd.btd(embed_tokens(params, batch, cfg))
+    x = shd.btd(embed_tokens(params, batch, cfg, shd))
     positions = positions_for(B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     chunk = perf.attn_chunk
@@ -381,8 +405,15 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
         raise ValueError(cfg.family)
 
     x = _norm(x, params["final_norm"], cfg)
-    logits = shd.btv(x @ params["lm_head"])
+    logits = shd.btv(head(params, x, shd))
     return logits, aux
+
+
+def head(params: dict, x: torch.Tensor, shd: Sharder = NOSHARD
+         ) -> torch.Tensor:
+    """``x @ lm_head``: under tensor parallelism the rank's vocabulary
+    columns of the logits."""
+    return TP.copy_to_model(x, shd.tp) @ params["lm_head"]
 
 
 # ===========================================================================
@@ -394,11 +425,10 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig,
             ) -> tuple[torch.Tensor, dict]:
     """(loss, {"nll", "aux"}): the mean next-token negative log-likelihood
     of ``batch["labels"]`` from float32 logits (logsumexp minus the gold
-    logit), plus the MoE aux loss, as the reference's ``loss_fn``."""
+    logit), plus the MoE aux loss, as the reference's ``loss_fn``; over
+    the whole vocabulary from each rank's columns under tensor
+    parallelism."""
     logits, aux = forward(params, batch, cfg, shd, perf)
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
-    nll = (lse - gold).mean()
+    nll = TP.cross_entropy(logits, batch["labels"], shd.tp).mean()
     loss = nll + aux
     return loss, {"nll": nll, "aux": aux}

@@ -11,6 +11,13 @@ without TF32 (``layers.f32_matmul``), as ``model.forward`` does.
 
 Decode contract: one new token per sequence and a shared position ``pos``
 (a Python int).
+
+Under tensor parallelism (``Sharder.tp``, the dense and encdec families)
+``prefill`` and ``decode_step`` return the rank's vocabulary columns of
+the logits, [B, vocab_p / m] (the reference's ``P(data, "model")``
+output); the self-attention caches hold the rank's sequence slots of
+every KV head, and whisper's ``cross_k``/``cross_v`` every head and
+frame, from which each rank reads its own heads.
 """
 from __future__ import annotations
 
@@ -24,8 +31,9 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (NOSHARD, Sharder, f32_matmul,
                                        gelu_mlp, swiglu)
 from repro_torch.models.model import (PerfConfig, _cross_attn, _cross_kv,
-                                      _norm, embed_tokens, encode,
+                                      _norm, embed_tokens, encode, head,
                                       n_segments, positions_for)
+from repro_torch.parallel import tensor_parallel as TP
 
 
 def _stack(one: dict, n: int) -> dict:
@@ -34,10 +42,13 @@ def _stack(one: dict, n: int) -> dict:
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
                 dtype=torch.float32, kv_quant: bool = False,
-                device=None) -> dict:
+                device=None, shd: Sharder = NOSHARD) -> dict:
+    """Every family's caches, zeroed; under tensor parallelism (``shd.
+    tp``) the attention caches hold the rank's sequence slots."""
     def attn_cache(quantized=False):
         return attn_mod.init_cache(cfg, batch, max_seq, dtype,
-                                   quantized=quantized, device=device)
+                                   quantized=quantized, device=device,
+                                   shd=shd)
     if cfg.family == "dense":
         return {"layers": _stack(attn_cache(kv_quant), cfg.n_layers)}
     if cfg.family == "moe":
@@ -74,12 +85,13 @@ def _layer(caches: dict, i: int) -> dict:
 def prefill(params: dict, batch: dict, cfg: ArchConfig,
             shd: Sharder = NOSHARD, perf: PerfConfig = PerfConfig(),
             max_seq: int = 0) -> tuple[torch.Tensor, dict]:
-    """Prompt pass; returns (last-position logits [B, vocab_p], caches)."""
+    """Prompt pass; returns (last-position logits [B, vocab_p] (the
+    rank's vocab_p / m columns under tensor parallelism), caches)."""
     B, S = batch["tokens"].shape
     max_seq = max_seq or S
-    x = shd.btd(embed_tokens(params, batch, cfg))
+    x = shd.btd(embed_tokens(params, batch, cfg, shd))
     caches = init_caches(cfg, B, max_seq, x.dtype, kv_quant=perf.kv_quant,
-                         device=x.device)
+                         device=x.device, shd=shd)
     positions = positions_for(B, S, x.device)
     chunk = perf.attn_chunk
 
@@ -117,17 +129,19 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig,
                 lp["self_attn"], _norm(x, lp["ln1"], cfg), positions, cfg,
                 shd, _layer(caches["layers"], i), chunk=chunk)
             x = x + h
-            kv = _cross_kv(lp["cross_attn"], enc_out, cfg)
+            kv = _cross_kv(lp["cross_attn"], enc_out, cfg, shd, whole=True)
             x = x + _cross_attn(lp["cross_attn"], _norm(x, lp["ln2"], cfg),
                                 enc_out, positions, enc_pos, cfg, shd, kv)
             x = x + gelu_mlp(lp["mlp"], _norm(x, lp["ln3"], cfg), shd)
+            if shd.tp is not None:
+                kv = tuple(shd.tp.kv_all(t, cfg) for t in kv)
             caches["cross_k"][i] = kv[0]
             caches["cross_v"][i] = kv[1]
     else:
         raise ValueError(cfg.family)
 
     x = _norm(x[:, -1:], params["final_norm"], cfg)
-    logits = shd.bv((x @ params["lm_head"])[:, 0])
+    logits = shd.bv(head(params, x, shd)[:, 0])
     return logits, caches
 
 
@@ -171,16 +185,23 @@ def _hybrid_prefill(params, x, positions, caches, cfg, shd, perf):
 
 def _cross_decode(p, xq, ck, cv, cfg: ArchConfig, shd: Sharder):
     """One query a sequence against the cached encoder keys/values, plain
-    PyTorch as in the reference."""
+    PyTorch as in the reference; under tensor parallelism the rank's
+    query heads against the KV heads they read."""
     B = xq.shape[0]
-    dh, hkv = cfg.head_dim, cfg.n_kv_heads
-    rep = cfg.n_heads // hkv
-    q = (xq @ p["wq"]).reshape(B, hkv, rep, dh).float()
+    dh = cfg.head_dim
+    tp = shd.tp
+    wq = p["wq"]
+    if tp is not None:
+        xq = TP.copy_to_model(xq, tp)
+        wq = tp.q_cols(wq, cfg)
+        ck, cv = tp.attn_kv(ck, cfg), tp.attn_kv(cv, cfg)
+    hkv = ck.shape[2]
+    q = (xq @ wq).reshape(B, hkv, -1, dh).float()
     s = torch.einsum("bhrd,bkhd->bhrk", q, ck.float()) * dh ** -0.5
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhrk,bkhd->bhrd", w, cv.float())
-    o = o.reshape(B, 1, cfg.n_heads * dh).to(xq.dtype) @ p["wo"]
-    return shd.btd(o)
+    o = o.reshape(B, 1, -1).to(xq.dtype)
+    return attn_mod._out_proj(p, o, cfg, shd)
 
 
 @torch.no_grad()
@@ -189,13 +210,14 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, pos: int,
                 cfg: ArchConfig, shd: Sharder = NOSHARD,
                 unroll: bool = False, moe_groups: int = 1
                 ) -> tuple[torch.Tensor, dict]:
-    """tokens [B, 1]; pos int. Returns (logits [B, vocab_p], caches).
+    """tokens [B, 1]; pos int. Returns (logits [B, vocab_p] (the rank's
+    vocab_p / m columns under tensor parallelism), caches).
 
     ``unroll`` is the reference's (a straight-line layer loop instead of
     a scan), accepted for its signature: the port's layer loop is a
     Python loop either way.
     """
-    x = shd.btd(params["embed"][tokens])
+    x = shd.btd(TP.embed(params["embed"], tokens, shd.tp))
 
     if cfg.family == "dense":
         for i, lp in enumerate(params["layers"]):
@@ -251,5 +273,5 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, pos: int,
         raise ValueError(cfg.family)
 
     x = _norm(x, params["final_norm"], cfg)
-    logits = shd.bv((x @ params["lm_head"])[:, 0])
+    logits = shd.bv(head(params, x, shd)[:, 0])
     return logits, caches

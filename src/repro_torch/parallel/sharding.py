@@ -19,9 +19,12 @@ trees compare entry for entry with the reference's ``PartitionSpec`` s.
 ``torch.distributed`` ``DeviceMesh``: a tensor dimension sharded over
 several mesh axes gets ``Shard(d)`` on each of them (the first named the
 major), and a mesh axis the spec does not name gets ``Replicate()``.
-The specs decide storage only: the step builders (``launch/steps.py``)
-gather the weights a step needs, split the batch over the data axes and
-run the rest of the model replicated over ``model``.
+The specs decide storage.  The step builders (``launch/steps.py``)
+split the batch over the data axes and gather each weight over them
+(:func:`gather` with ``keep="model"``): a dense or encdec step keeps its
+``model`` shard and computes tensor-parallel
+(``parallel/tensor_parallel.py``), the other families gather the
+weights whole and run the model replicated over ``model``.
 
 The port keeps a layer stack as a list of per-layer dicts where the
 reference stacks it on a leading axis (``tree.py``): the reference's
@@ -52,7 +55,6 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import Sharder
 from repro_torch.tree import leaves as _leaves
 from repro_torch.tree import map_ as _map
 
@@ -99,7 +101,8 @@ def spec_paths(tree: Any) -> dict:
     return out
 
 
-def make_sharder(mesh, multi_pod: bool = False) -> Sharder:
+def make_sharder(mesh, multi_pod: bool = False):
+    from repro_torch.models.layers import Sharder
     data_axes = ("pod", "data") if multi_pod else "data"
     return Sharder(mesh=mesh, data_axes=data_axes, model_axes="model")
 
@@ -285,11 +288,29 @@ def place(tree: Any, shardings: Any) -> Any:
     return map_specs(one, tree, shardings)
 
 
-def gather(tree: Any) -> Any:
-    """Every ``DTensor`` leaf of ``tree`` as its full tensor (on every
-    rank); other leaves as they are."""
-    return map_specs(lambda _, x: x.full_tensor() if _is_dtensor(x) else x,
-                     tree)
+def gather(tree: Any, keep: str | None = None, layout: Any = None) -> Any:
+    """Every ``DTensor`` leaf of ``tree`` as this rank's tensor, other
+    leaves as they are.  With no ``keep``: the full tensor.  With the
+    mesh axis ``keep`` (``"model"``): gathered over every other mesh axis
+    and left sharded over ``keep``, the rank's shard of ``keep``; a leaf
+    that ``layout`` (a tree of ``tensor_parallel.layout`` 's kinds)
+    names ``"whole"`` is gathered over ``keep`` too, the rule for a
+    shard that does not line up with the ranks' heads."""
+    from torch.distributed.tensor import Replicate
+
+    def one(_, x, kind=None):
+        if not _is_dtensor(x):
+            return x
+        if keep is None or kind == "whole":
+            return x.full_tensor()
+        mesh = x.device_mesh
+        i = mesh.mesh_dim_names.index(keep)
+        want = [Replicate()] * mesh.ndim
+        want[i] = x.placements[i]
+        return x.redistribute(mesh, want).to_local()
+    if layout is None:
+        return map_specs(one, tree)
+    return map_specs(one, tree, layout)
 
 
 def mesh_device(mesh) -> torch.device:

@@ -81,7 +81,7 @@ def test_cli_on_the_reference_test_cell_and_its_cache(tmp_path):
     for kind in ("all-gather", "reduce-scatter", "all-reduce"):
         assert coll["counts"][kind] > 0 and coll[kind] > 0, kind
     assert coll["total_wire_bytes"] == rec["cost"]["wire_bytes"] > 0
-    # the ranks' rows with the weights whole, replicated over "model"
+    # each rank's rows on its heads, d_ff columns and vocabulary rows
     assert 0 < rec["roofline"]["useful_flop_ratio"] < 1
     stamp = path.stat().st_mtime_ns
     proc = _dryrun(*args)
@@ -161,3 +161,45 @@ def test_qwen2_vl_builds_and_counts_on_fake_tensors():
         assert math.isfinite(run.cost["flops"]) and run.cost["flops"] > 0
         assert rec["per_component"]["block"]["true"] == cfg.n_layers
         assert run.cost["wire"] == 0          # one device: no collective
+
+
+_TP_SPLIT = r"""
+import json, sys
+import torch
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.cells import default_perf
+from repro_torch.launch.costing import ComponentCoster, step_cost
+from repro_torch.launch.mesh import make_production_mesh
+cfg, cell = get_config("stablelm-1.6b"), SHAPES["train_4k"]
+perf = default_perf(cfg, cell, 16)
+whole = step_cost(cfg, cell, (torch.device("cpu"),), perf)
+dryrun.fake_group(256)
+mesh = make_production_mesh()
+rank = step_cost(cfg, cell, mesh, perf)
+blocks = ComponentCoster(cfg, cell, mesh, perf).bodies()
+print(json.dumps(dict(whole=whole.cost, rank=rank.cost,
+                      coll=rank.collectives,
+                      block_wire=blocks["block"][0]["wire"])))
+"""
+
+
+def test_tensor_parallel_rank_does_its_share_of_the_products():
+    """stablelm-1.6b ``train_4k`` on the fake 256-rank group, with the 2D
+    default of ``launch.cells`` (its own override is pure FSDP, which
+    splits the batch over all 256 ranks and nothing over ``model``): a
+    rank's product and attention flops times 256 are the one-device
+    step's within 1 %, and the blocks' collectives over ``model`` carry
+    wire bytes (forward sums and backward gradients, every layer and
+    microbatch)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _TP_SPLIT], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    ratio = out["rank"]["matmul_flops"] * 256 / out["whole"]["matmul_flops"]
+    assert abs(ratio - 1) <= 0.01, ratio
+    assert out["block_wire"] > 0
+    layers, accum = 24, 16
+    assert out["coll"]["counts"]["all-reduce"] >= 4 * layers * accum
+    assert out["coll"]["all-reduce"] > 0
