@@ -8,7 +8,8 @@ these phases, each printing one line with its result and seconds, in this
 order but for the last six: 27, 28 and 30 run before 26, phase 30's
 (c)-(e) with phase 31's (b) in a process of their own, phase 29's quick
 lane in four processes of its own, phase 31's dry run in one more and
-phase 32's two ranks in two more, all started before phase 26 so that
+phase 32's two ranks (which run phase 33 too) in two more, all started
+before phase 26 so that
 their host-bound work overlaps phase 26's and the smoke scenario's
 (none of them times a kernel):
 
@@ -309,11 +310,11 @@ their host-bound work overlaps phase 26's and the smoke scenario's
 32. tensor-parallel compute over ``model``, in two processes of their own
     (``TP_RUN``): a world of two ranks on the one card over gloo with
     CUDA tensors (NCCL refuses two ranks on one device), a (data 1,
-    model 2) ``DeviceMesh``, stablelm-1.6b at its published width and
-    depth, seeded f32 weights from one CUDA generator seed in both
-    ranks: (a) through the step builders a prefill of 2 x 2048 prompts
-    and 16 greedy decode steps (``tensor_parallel.greedy`` over the
-    vocabulary-split logits), the flash forward launched 24 times a
+    model 2) ``DeviceMesh``, stablelm-1.6b at its published width, 12 of
+    its 24 layers, seeded f32 weights from one CUDA generator seed in
+    both ranks: (a) through the step builders a prefill of 2 x 2048
+    prompts and 16 greedy decode steps (``tensor_parallel.greedy`` over
+    the vocabulary-split logits), the flash forward launched 12 times a
     prefill on each rank's 16 heads; (b) one train step of 1 x 4096
     tokens with full remat, both flash kernels launched on each rank;
     then on rank 0 the same weights' one-device prefill, decode and
@@ -321,12 +322,29 @@ their host-bound work overlaps phase 26's and the smoke scenario's
     one-device logits' largest value, loss and gradient norm within
     ``TP_LOSS_RTOL`` and ``TP_GNORM_RTOL``; a rank holds half of every
     split weight and none whole; each rank's seconds, peak memory and
-    bytes of weights held.
+    bytes of weights held;
+33. the moe, ssm and hybrid families split over ``model`` in phase 32's
+    two ranks, after stablelm, on the same mesh (``TP_FAMILY_RUNS``), at
+    full published width, seeded f32: deepseek-v2-lite-16b at 4 of 27
+    layers (the dense first layer and 3 MoE layers, 32 of the 64
+    experts a rank), falcon-mamba-7b at 8 of 64 and zamba2-1.2b whole
+    (the flash kernels on each rank's 16 of the shared block's 32
+    heads); each a prefill of 2 x 2048, 8 greedy decode steps and one
+    train step with full remat (1 x 4096 tokens for deepseek, fewer for
+    the two Mamba configs, whose chunk scan's autograd keeps 17
+    chunk-sized tensors a chunk); then rank 0's one-device twin from
+    fresh weights of the same seed: tokens equal, logits within
+    ``TP_LOGITS_RTOL`` of the largest (or, without MoE, within what the
+    one device's own prefill and decode part from its ``forward`` over
+    the same tokens, ``TP_WITNESS_FACTOR``), loss and gradient norm within
+    ``TP_LOSS_RTOL``, a rank holds half of each split weight (the
+    experts too), the two ranks' routing ids equal bit for bit, zamba2's
+    flash launches 6 a prefill, 12 forward and 6 backward a step.
 Phases 22-30 read their parameters and the JAX reference's values from
 ``tools/chip_reference.json`` (``tools/chip_reference.py``); 22-25 rerun
 every kernel they launched on the inputs they gave it, as in 20.
 
-Phases 5, 9-12, 14-16, 18-30 and 32 each set every kernel's launch counter
+Phases 5, 9-12, 14-16, 18-30, 32 and 33 each set every kernel's launch counter
 to 0 just before they drive their path and read the counters just after;
 a kernel of the path that was not launched fails the phase.  The model's
 entry points (``forward``, ``prefill``, ``decode_step``) and phase 17's
@@ -5532,22 +5550,39 @@ def dryrun_costing(results, dry: _Workers):
 
 #: phase 32: stablelm-1.6b at its published width on a (data 1, model 2)
 #: mesh of two processes on the one card, over gloo with CUDA tensors
-TP_RUN = dict(config="stablelm-1.6b", n_layers=24, seed=0, batch=2,
+TP_RUN = dict(config="stablelm-1.6b", n_layers=12, seed=0, batch=2,
               prompt=2048, decode_steps=16, train_tokens=4096, remat="full")
+#: phase 33: the moe, ssm and hybrid families on the same mesh, cut in
+#: depth only; the Mamba configs' train steps take fewer tokens (their
+#: chunk scan keeps 2 log2(256) + 1 tensors of [1, 256, d_inner,
+#: d_state] a chunk under autograd: 36.5 GB a layer at 4096 tokens for
+#: falcon-mamba-7b and 73 GB for zamba2-1.2b on the one-device twin)
+TP_FAMILY_RUNS = (
+    dict(config="deepseek-v2-lite-16b", n_layers=4, train_tokens=4096),
+    dict(config="falcon-mamba-7b", n_layers=8, train_tokens=2048),
+    dict(config="zamba2-1.2b", n_layers=38, train_tokens=1024))
+TP_FAMILY = dict(seed=0, batch=2, prompt=2048, decode_steps=8,
+                 remat="full")
 #: (a): logits within this share of the one-device logits' largest value
 TP_LOGITS_RTOL = 1e-4
+#: phase 33: or, for a config without MoE, within what the one-device
+#: step's own prefill and decode part from its ``forward`` over the same
+#: tokens (a sum taken in another order moves zamba2-1.2b's logits by
+#: some 6e-4: ROADMAP Queue 3 item 13).  A MoE config's ``forward``
+#: routes the whole sequence as one group, whose capacity drops other
+#: tokens than the prefill's and decode's groups: no witness there
+TP_WITNESS_FACTOR = 1.0
 #: (b): loss and gradient norm against the one-device step, relative
 TP_LOSS_RTOL = 1e-5
 TP_GNORM_RTOL = 1e-4
 
 
-def _tp_serve(prefill, decode, params, tokens, tp) -> dict:
+def _tp_serve(prefill, decode, params, tokens, tp, p=TP_RUN) -> dict:
     """(a) through the step builders: a prefill of ``tokens`` and
     ``decode_steps`` greedy steps, each step's logits whole on the host,
     the greedy tokens, seconds and flash launches."""
     import torch
     from repro_torch.parallel import tensor_parallel as TP
-    p = TP_RUN
 
     def whole(logits):
         if tp is None:
@@ -5606,11 +5641,129 @@ def _tp_train(ts, params, opt, batch) -> dict:
                 flash_bwd=launches["flash_attention_bwd"])
 
 
+def _tp_held(cfg, mesh, placed, tp) -> dict:
+    """What a rank holds of ``placed`` (the weights on ``mesh``): bytes
+    held, of the split weights, of the replicated ones, the leaves
+    gathered whole over ``model``, each leaf's local shape."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch.steps import params_sds
+    from repro_torch.parallel import tensor_parallel as TP
+    from repro_torch.parallel.sharding import param_specs
+    psds = params_sds(cfg, torch.float32)
+    layout = dict(tree.paths(TP.layout(cfg, psds, param_specs(cfg, psds),
+                                       tp)))
+    sizes = {k: v.numel() * 4 for k, v in tree.paths(psds)}
+    split = sum(n for k, n in sizes.items() if layout[k] == "shard")
+    return dict(held=sum(t.to_local().numel() * t.element_size()
+                         for t in tree.leaves(placed)),
+                split=split, replicated=sum(sizes.values()) - split,
+                whole=[k for k, v in layout.items() if v == "whole"],
+                local={k: tuple(v.to_local().shape)
+                       for k, v in tree.paths(placed)})
+
+
+def _tp_family(run: dict, mesh, tp, rank: int) -> dict:
+    """Phase 33 for one config of ``TP_FAMILY_RUNS`` in a rank of phase
+    32's world: prefill, greedy decode and a train step on the (1, 2)
+    mesh, the MoE routing ids of the prefill and decode steps; then on
+    rank 0 the one-device twin from fresh weights of the same seed."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
+                                          make_train_step, params_sds)
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import param_specs, place, to_named
+    p = TP_FAMILY
+    cfg = dataclasses.replace(get_config(run["config"]),
+                              n_layers=run["n_layers"])
+
+    def fresh():
+        return M.init_params(cfg, torch.Generator("cuda").manual_seed(
+            p["seed"]))
+    L, B = p["prompt"] + p["decode_steps"], p["batch"]
+    tokens = np.random.default_rng(p["seed"]).integers(
+        0, cfg.vocab, (B, p["prompt"]))
+    cells = (ShapeCell("prefill", L, B, "prefill"),
+             ShapeCell("decode", L, B, "decode"),
+             ShapeCell("train", run["train_tokens"], 1, "train"))
+    perf = M.PerfConfig(remat=p["remat"], accum_steps=1)
+    batch = SyntheticLM(cfg.vocab, run["train_tokens"], 1,
+                        seed=p["seed"]).microbatched(0, 1)
+
+    def steps(m):
+        return (make_prefill_step(cfg, cells[0], m, dtype=torch.float32)[0],
+                make_decode_step(cfg, cells[1], m, dtype=torch.float32)[0],
+                make_train_step(cfg, cells[2], m, perf=perf,
+                                dtype=torch.float32)[0])
+    routes = []
+    route = MOE.route
+
+    def recorded(*args, **kwargs):
+        r = route(*args, **kwargs)
+        if not torch.is_grad_enabled():
+            routes.append(r["ids"].cpu())
+        return r
+    MOE.route = recorded
+    try:
+        t0 = time.perf_counter()
+        placed = place(fresh(), to_named(mesh, param_specs(
+            cfg, params_sds(cfg, torch.float32))))
+        out = dict(config=run["config"], place_s=time.perf_counter() - t0,
+                   **_tp_held(cfg, mesh, placed, tp))
+        pre, dec, ts = steps(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        out["serve"] = _tp_serve(pre, dec, placed, tokens, tp, p)
+        out["serve"]["peak_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        out["routes"] = routes[:]
+        torch.cuda.empty_cache()
+        opt = {"m": tree.map_(torch.zeros_like, placed),
+               "v": tree.map_(torch.zeros_like, placed),
+               "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+        out["train"] = _tp_train(ts, placed, opt, batch)
+        del placed, opt, pre, dec, ts
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            params = fresh()
+            pre, dec, ts = steps((torch.device("cuda", 0),))
+            out["one_serve"] = _tp_serve(pre, dec, params, tokens, None, p)
+            # the witness: ``forward`` over the prompt and the greedy
+            # tokens, at the positions the prefill and decode steps gave
+            seq = torch.cat([torch.as_tensor(tokens)] + [
+                t.long() for t in out["one_serve"]["tokens"][:-1]], 1).cuda()
+            with torch.no_grad():
+                logits, _ = M.forward(params, {"tokens": seq}, cfg)
+            out["one_forward"] = [logits[:, p["prompt"] - 1 + t].cpu()
+                                  for t in range(p["decode_steps"] + 1)]
+            del logits, seq
+            torch.cuda.empty_cache()
+            out["one_train"] = _tp_train(ts, params, adamw_init(params),
+                                         batch)
+            del params, pre, dec, ts
+        torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        MOE.route = route
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _tp_worker(rank: int, store: str) -> dict:
-    """Phase 32 in rank ``rank`` of a world of two processes on the one
-    card over gloo (its store the file ``store``): (a) and (b) on the
-    (1, 2) mesh; then, on rank 0, the same weights' one-device prefill,
-    decode and train step; every rank's results."""
+    """Phases 32 and 33 in rank ``rank`` of a world of two processes on
+    the one card over gloo (its store the file ``store``): (a) and (b)
+    on the (1, 2) mesh; then, on rank 0, the same weights' one-device
+    prefill, decode and train step; then phase 33's configs
+    (:func:`_tp_family`); every rank's results."""
     import dataclasses
     import datetime
     import numpy as np
@@ -5631,6 +5784,7 @@ def _tp_worker(rank: int, store: str) -> dict:
     from repro_torch.parallel import tensor_parallel as TP
     from repro_torch.parallel.sharding import param_specs, place, to_named
     p = TP_RUN
+    t_start = time.perf_counter()
     dist.init_process_group("gloo", store=dist.FileStore(store, 2),
                             rank=rank, world_size=2,
                             timeout=datetime.timedelta(seconds=240))
@@ -5643,19 +5797,10 @@ def _tp_worker(rank: int, store: str) -> dict:
             return M.init_params(cfg, torch.Generator("cuda").manual_seed(
                 p["seed"]))
         params = fresh()
-        psds = params_sds(cfg, torch.float32)
-        pspecs = param_specs(cfg, psds)
-        placed = place(params, to_named(mesh, pspecs))
-        layout = dict(tree.paths(TP.layout(cfg, psds, pspecs, tp)))
-        sizes = {k: v.numel() * 4 for k, v in tree.paths(psds)}
-        held = sum(t.to_local().numel() * t.element_size()
-                   for t in tree.leaves(placed))
-        split = sum(n for k, n in sizes.items() if layout[k] == "shard")
-        out = dict(rank=rank, held=held, split=split,
-                   replicated=sum(sizes.values()) - split,
-                   whole=[k for k, v in layout.items() if v == "whole"],
-                   wq_local=tuple(placed["layers"][0]["attn"]["wq"]
-                                  .to_local().shape))
+        placed = place(params, to_named(mesh, param_specs(
+            cfg, params_sds(cfg, torch.float32))))
+        out = dict(rank=rank, **_tp_held(cfg, mesh, placed, tp))
+        out["wq_local"] = out.pop("local")["layers/0/attn/wq"]
         L, B = p["prompt"] + p["decode_steps"], p["batch"]
         tokens = np.random.default_rng(p["seed"]).integers(
             0, cfg.vocab, (B, p["prompt"]))
@@ -5694,9 +5839,12 @@ def _tp_worker(rank: int, store: str) -> dict:
             torch.cuda.empty_cache()
             out["one_train"] = _tp_train(ts, params, adamw_init(params),
                                          batch)
-            del params
+            del params, pre, dec, ts
         torch.cuda.empty_cache()
         dist.barrier()
+        out["seconds"] = time.perf_counter() - t_start
+        out["families"] = [_tp_family(run, mesh, tp, rank)
+                           for run in TP_FAMILY_RUNS]
     finally:
         dist.destroy_process_group()
     return out
@@ -5779,12 +5927,122 @@ def tensor_parallel_phase(results, lane):
             f"1 x {p['train_tokens']} tokens {t['seconds']:.3f} s, loss "
             f"rel {gap_loss:.2e}, grad_norm rel {gap_gn:.2e}, flash "
             f"{t['flash_fwd']} forward, {t['flash_bwd']} backward, peak "
-            f"{t['peak_gib']:.2f} GiB")
+            f"{t['peak_gib']:.2f} GiB; {r['seconds']:.1f} s in all")
     say(f"  one device (rank 0): prefill {one_s['prefill_s']:.3f} s, "
         f"decode {one_s['decode_s']:.3f} s, train step "
         f"{one_t['seconds']:.3f} s, peak {one_t['peak_gib']:.2f} GiB; "
         f"{results['card']}; {waited:.2f} s waited for here")
     results["tensor_parallel"] = out
+    results["tensor_parallel_ranks"] = ranks
+    return out
+
+
+@phase("33 moe, ssm and hybrid compute over model")
+def tensor_parallel_families(results):
+    """Phase 33's checks on the results phase 32's ranks brought back."""
+    import torch
+    ranks = results.pop("tensor_parallel_ranks")
+    p = TP_FAMILY
+    out = {"configs": {}, "card": results["card"]}
+    for i, run in enumerate(TP_FAMILY_RUNS):
+        name, n = run["config"], run["n_layers"]
+        fam = [r["families"][i] for r in ranks]
+        one_s, one_t = fam[0]["one_serve"], fam[0]["one_train"]
+        scale = max(float(x.abs().max()) for x in one_s["logits"])
+        witness = max(float((a - b).abs().max()) for a, b in
+                      zip(one_s["logits"], fam[0]["one_forward"]))
+        moe = name.startswith("deepseek")
+        tol = TP_LOGITS_RTOL * scale
+        if not moe:
+            tol = max(tol, TP_WITNESS_FACTOR * witness)
+        zamba = name == "zamba2-1.2b"
+        n_seg = n // 6 if zamba else 0
+        rows = []
+        for rank, f in enumerate(fam):
+            s, t = f["serve"], f["train"]
+            errs = [float((a - b).abs().max())
+                    for a, b in zip(s["logits"], one_s["logits"])]
+            err = max(errs)
+            same = all(bool((a == b).all())
+                       for a, b in zip(s["tokens"], one_s["tokens"]))
+            check(not f["whole"]
+                  and f["held"] == f["split"] // 2 + f["replicated"],
+                  f"phase 33 {name} rank {rank}: holds {f['held']} bytes "
+                  f"of weights (split {f['split']}, replicated "
+                  f"{f['replicated']}), gathered whole {f['whole']}")
+            if moe:
+                wg = f["local"]["layers/0/moe/experts/w_gate"]
+                check(wg[0] == 32, f"phase 33 {name} rank {rank}: expert "
+                      f"weights {wg}, expected 32 of 64 experts")
+            check(same and err <= tol,
+                  f"phase 33 {name} rank {rank}: logits {err:.3e} from "
+                  f"the one-device step's (largest {scale:.3f}; by step "
+                  f"{['%.2e' % e for e in errs]}; the one device's own "
+                  f"decode from its forward {witness:.3e}), tokens equal: "
+                  f"{same}")
+            gap_loss = abs(t["loss"] - one_t["loss"]) / abs(one_t["loss"])
+            gap_gn = abs(t["grad_norm"] - one_t["grad_norm"]) \
+                / abs(one_t["grad_norm"])
+            check(gap_loss <= TP_LOSS_RTOL and gap_gn <= TP_LOSS_RTOL,
+                  f"phase 33 {name} rank {rank}: loss {t['loss']} vs "
+                  f"{one_t['loss']} (rel {gap_loss:.2e}), grad_norm "
+                  f"{t['grad_norm']} vs {one_t['grad_norm']} (rel "
+                  f"{gap_gn:.2e})")
+            flash = (s["prefill_flash"], s["decode_flash"], t["flash_fwd"],
+                     t["flash_bwd"])
+            want = (n_seg, 0, 2 * n_seg, n_seg)
+            check(flash == want, f"phase 33 {name} rank {rank}: flash "
+                  f"launches prefill, decode, train forward, backward "
+                  f"{flash} (expected {want})")
+            rows.append(dict(
+                held_bytes=f["held"], split_bytes=f["split"],
+                replicated_bytes=f["replicated"], place_s=f["place_s"],
+                logits_err=err, logits_err_by_step=errs,
+                seconds=f["seconds"], prefill_s=s["prefill_s"],
+                decode_s=s["decode_s"], serve_peak_gib=s["peak_gib"],
+                train=t, gaps=dict(loss=gap_loss, grad_norm=gap_gn),
+                launches=dict(prefill=s["prefill_flash"],
+                              train_fwd=t["flash_fwd"],
+                              train_bwd=t["flash_bwd"])))
+            say(f"  {name} ({n} layers) rank {rank}: holds "
+                f"{f['held'] / 2 ** 30:.3f} GiB of weights (the split "
+                f"{f['split'] / 2 ** 30:.3f} GiB halved, "
+                f"{f['replicated'] / 2 ** 20:.2f} MiB replicated); prefill "
+                f"{p['batch']} x {p['prompt']} {s['prefill_s']:.3f} s, "
+                f"{p['decode_steps']} greedy steps {s['decode_s']:.3f} s, "
+                f"peak {s['peak_gib']:.2f} GiB; logits {err:.3e} from the "
+                f"one-device step's (largest {scale:.3f}; prefill "
+                f"{errs[0]:.3e}, decode up to {max(errs[1:]):.3e}), tokens "
+                f"equal; train 1 x {run['train_tokens']} "
+                f"{t['seconds']:.3f} s, "
+                f"loss rel {gap_loss:.2e}, grad_norm rel {gap_gn:.2e}, "
+                f"peak {t['peak_gib']:.2f} GiB; flash {flash}")
+        n_routes = len(fam[0]["routes"])
+        routed = ", routed in other groups" if moe else ""
+        if moe:
+            n_moe = n - 1
+            check(n_routes == n_moe * (1 + p["decode_steps"])
+                  and len(fam[1]["routes"]) == n_routes
+                  and all(torch.equal(a, b) for a, b in
+                          zip(fam[0]["routes"], fam[1]["routes"])),
+                  f"phase 33 {name}: the ranks' routing ids differ "
+                  f"({n_routes} and {len(fam[1]['routes'])} routings)")
+        say(f"  {name} one device (rank 0): prefill "
+            f"{one_s['prefill_s']:.3f} s, decode {one_s['decode_s']:.3f} "
+            f"s, train step {one_t['seconds']:.3f} s, peak "
+            f"{one_t['peak_gib']:.2f} GiB; its prefill and decode "
+            f"{witness:.3e} from its forward (logits held to {tol:.3e}"
+            f"{routed}); "
+            f"routings equal on both ranks: {n_routes}; "
+            f"{fam[0]['seconds']:.1f} s in all (placing the weights "
+            f"{fam[0]['place_s']:.1f})")
+        out["configs"][name] = dict(
+            n_layers=n, train_tokens=run["train_tokens"], ranks=rows,
+            routings=n_routes, witness=witness, logits_tol=tol,
+            one=dict(prefill_s=one_s["prefill_s"],
+                     decode_s=one_s["decode_s"], train=one_t))
+    say(f"  {results['card']}")
+    results["tensor_parallel_families"] = out
     return out
 
 
@@ -5863,6 +6121,7 @@ def main() -> int:
         serving_launches = serving_path(results, lane)
         dryrun_costing(results, dry)
         tp = tensor_parallel_phase(results, tp_lane)
+        tpf = tensor_parallel_families(results)
     finally:
         tp_lane[0].stop()
         dry.stop()
@@ -5992,6 +6251,11 @@ def main() -> int:
                             train_launches["mesh"]["flash_attention"],
                         **{f"tensor_parallel_32:rank{i}:{k}": r[
                             "launches"][k] for i, r in enumerate(tp["ranks"])
+                           for k in ("prefill", "train_fwd")},
+                        **{f"tensor_parallel_33:{c}:rank{i}:{k}": r[
+                            "launches"][k]
+                           for c, v in tpf["configs"].items()
+                           for i, r in enumerate(v["ranks"])
                            for k in ("prefill", "train_fwd")}}),
         _kernel_row("flash_attention_bwd.mha_backward",
                     f"{src}/flash_attention/csrc/flash_attention_bwd.cu",
@@ -6012,6 +6276,10 @@ def main() -> int:
                         **{f"tensor_parallel_32:rank{i}:train": r[
                             "launches"]["train_bwd"]
                            for i, r in enumerate(tp["ranks"])},
+                        **{f"tensor_parallel_33:{c}:rank{i}:train": r[
+                            "launches"]["train_bwd"]
+                           for c, v in tpf["configs"].items()
+                           for i, r in enumerate(v["ranks"])},
                         **{f"training_30:reduced:{k}": v for k, v in
                            train_launches["reduced"].items()}}),
     ]

@@ -46,15 +46,14 @@ What a count means, per rank:
   gradient) is not seen.
 
 On a ``DeviceMesh`` a step runs on each rank its data rows
-(``launch/steps.py``).  The dense and encdec families split the rest
-over ``model`` (tensor parallelism), so their blocks are costed on one
-rank's rows with its ``model`` shards of the weights, the block's
-collectives over ``model`` (and a decode's over the cache's sequence
-ranks) counted in its wire; the other families gather the weights whole
-and their blocks are costed with whole weights: nothing hides that
-their compute is replicated over ``model``.  The weight gathers over the
-data axes and the gradient reduce-scatters are step-level, so their
-wire lands in ``embed_head``.
+(``launch/steps.py``) and splits the rest over ``model`` (tensor and
+expert parallelism), so the blocks are costed on one rank's rows with
+its ``model`` shards of the weights (caches and Mamba states its
+shards), the block's collectives over ``model`` (and a decode's over
+the cache's sequence ranks) counted in its wire; under ``fsdp`` the
+weights are whole and so is each block's compute.  The weight gathers
+over the data axes and the gradient reduce-scatters are step-level, so
+their wire lands in ``embed_head``.
 """
 from __future__ import annotations
 
@@ -478,7 +477,7 @@ class ComponentCoster:
             fs = functools.partial(_dense_block, cfg=cfg, shd=shd,
                                    chunk=chunk)
             fn = functools.partial(_ssm_block, cfg=cfg, shd=shd)
-            out["shared_block"] = (mk(fs, self.psds["shared_block"]),
+            out["shared_block"] = (mk(fs, self.compute_sds["shared_block"]),
                                    n_seg, n_seg)
             out["mamba_block"] = (mk(lambda lp, x, pos: fn(lp, x),
                                      self._layer("layers")),
@@ -580,7 +579,7 @@ class ComponentCoster:
                 n_seg = n_segments(cfg)
                 out["mamba_block"] = (cost, cfg.n_layers, cfg.n_layers)
                 out["shared_block"] = (
-                    attn_layer(self.psds["shared_block"], "shared"),
+                    attn_layer(self.compute_sds["shared_block"], "shared"),
                     n_seg, n_seg)
         elif cfg.family == "encdec":
             # decoder self+cross blocks; encoder runs once at prefill

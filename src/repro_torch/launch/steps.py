@@ -16,17 +16,18 @@ shardings, so the step makes three things explicit:
 - storage: parameters, optimizer moments and caches are ``DTensor`` s
   placed by the reference's spec trees (``parallel.sharding``);
 - compute: each rank runs the batch rows of its coordinate on the
-  batch's data axes.  The ``dense`` and ``encdec`` families split the
-  rest over ``model`` as the reference's specs do (Megatron tensor
+  batch's data axes, and splits the rest over ``model`` as the
+  reference's specs do (Megatron tensor parallelism and expert
   parallelism, ``parallel/tensor_parallel.py``): each weight is gathered
   over the data axes only and keeps its ``model`` shard, so a rank
-  computes its own heads, ``d_ff`` columns and vocabulary rows, and its
-  decode caches hold its own sequence slots; an attention weight whose
-  shards do not line up with the ranks' heads is gathered whole over
-  ``model`` and sliced (``tensor_parallel.layout``).  The ``moe``,
-  ``ssm`` and ``hybrid`` families gather every weight whole and run the
-  model replicated over ``model``; so does ``parallelism == "fsdp"``,
-  whose batch spans the whole mesh;
+  computes its own heads, ``d_ff`` columns, experts, ``d_inner``
+  channels and vocabulary rows, and its decode caches hold its own
+  sequence slots (a Mamba state its ``d_inner`` channels); a weight
+  whose shards do not line up with the ranks' heads, experts or Mamba-2
+  heads is gathered whole over ``model`` and sliced
+  (``tensor_parallel.layout``).  ``parallelism == "fsdp"``, whose batch
+  spans the whole mesh, gathers every weight whole and runs the model
+  replicated over ``model``;
 - results: logits (the rank's vocabulary columns) and caches are placed
   by the reference's output specs; gradients reach their shards from
   ``Partial`` over the data axes (and over ``model`` for a weight
@@ -36,7 +37,9 @@ shardings, so the step makes three things explicit:
 A MoE config routes within each rank's rows, so its ``moe_groups`` must
 be a multiple of the number of data ranks: each rank takes its share of
 the groups, and every group holds the tokens (and capacity) it holds on
-one device.
+one device.  The load-balance loss of a train step takes its token and
+probability fractions over the whole batch, summed over the data ranks
+(``Sharder.dp``), as the reference's global means are.
 """
 from __future__ import annotations
 
@@ -85,8 +88,9 @@ def make_sharder(mesh, multi_pod: bool, tiny_batch: bool = False,
 
 def tp_sharder(cfg: ArchConfig, mesh, shd: Sharder) -> Sharder:
     """``shd`` with the tensor-parallel context of ``mesh`` 's ``model``
-    axis for the families that split over it (``TP.FAMILIES``), where
-    that axis has several ranks; ``shd`` itself otherwise."""
+    axis for the families that split over it (``TP.FAMILIES``: all of
+    them), where that axis has several ranks; ``shd`` itself
+    otherwise."""
     if cfg.family not in TP.FAMILIES or not is_device_mesh(mesh):
         return shd
     return dataclasses.replace(shd, tp=TP.tensor_parallel(
@@ -257,10 +261,10 @@ def _local_perf(cfg: ArchConfig, perf: PerfConfig, n_data: int
 def _micro_grads(params, leaves, batch: dict, accum: int, cfg, shd, perf):
     """``loss_fn`` 's gradient of each of the ``accum`` microbatches of
     ``batch``, summed in float32 in microbatch order over ``leaves``
-    (the tensors of ``params``): (sums, losses)."""
+    (the tensors of ``params``): (sums, losses, aux losses)."""
     gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for p in leaves]
-    losses = []
+    losses, auxes = [], []
     with f32_matmul():
         for i in range(accum):
             mb = {k: v[i] for k, v in batch.items()}
@@ -270,14 +274,15 @@ def _micro_grads(params, leaves, batch: dict, accum: int, cfg, shd, perf):
             it = iter(live)
             tp = tree.map_(lambda _: next(it), params)
             with torch.enable_grad():
-                loss, _ = M.loss_fn(tp, mb, cfg, shd, perf)
+                loss, parts = M.loss_fn(tp, mb, cfg, shd, perf)
                 grads = torch.autograd.grad(loss, live, allow_unused=True)
             for s, g in zip(gsum, grads):
                 if g is not None:
                     s.add_(g.float())
             losses.append(loss.detach())
-            del loss, grads, live, tp
-    return gsum, losses
+            auxes.append(parts["aux"].detach())
+            del loss, parts, grads, live, tp
+    return gsum, losses, auxes
 
 
 def make_train_step(cfg: ArchConfig, cell: ShapeCell, mesh, *,
@@ -297,7 +302,9 @@ def make_train_step(cfg: ArchConfig, cell: ShapeCell, mesh, *,
     place.  Forward and backward run without TF32 (``f32_matmul``).
     ``train_step.grads(params, batch)`` is its first half: (the gradient
     of each parameter in a tree like ``params``, placed as the parameter
-    on a ``DeviceMesh``; the mean loss).  On a ``DeviceMesh``
+    on a ``DeviceMesh``; the mean loss), and with ``with_aux=True`` the
+    mean of the microbatches' load-balance losses third (0 but for MoE;
+    the same on every rank).  On a ``DeviceMesh``
     ``train_step.layout`` is ``tensor_parallel.layout`` of the
     parameters: how the step gathers each.
 
@@ -325,17 +332,18 @@ def make_train_step(cfg: ArchConfig, cell: ShapeCell, mesh, *,
     _one_device(mesh, multi_pod)
     batch_sds.update(_batch_extras_sds(cfg, lead, dtype, "data")[0])
 
-    def grads(params, batch):
+    def grads(params, batch, with_aux=False):
         batch = {k: _to(v, dev) for k, v in batch.items()}
         leaves = tree.leaves(params)
-        gsum, losses = _micro_grads(params, leaves, batch, accum, cfg,
-                                    NOSHARD, perf)
+        gsum, losses, auxes = _micro_grads(params, leaves, batch, accum, cfg,
+                                           NOSHARD, perf)
         with torch.no_grad():
             for s in gsum:
                 s.div_(accum)
         it = iter(gsum)
-        return tree.map_(lambda _: next(it), params), \
+        out = tree.map_(lambda _: next(it), params), \
             torch.stack(losses).mean()
+        return out + (torch.stack(auxes).mean(),) if with_aux else out
 
     def train_step(params, opt, batch):
         g, loss = grads(params, batch)
@@ -354,6 +362,9 @@ def _mesh_train_step(cfg, mesh, perf, opt_cfg, multi_pod, dtype, dev,
     from torch.distributed.tensor import DTensor, Partial, Replicate
     shd = make_sharder(mesh, multi_pod, parallelism=perf.parallelism)
     shd = tp_sharder(cfg, mesh, shd)
+    if cfg.moe is not None:
+        shd = dataclasses.replace(shd, dp=TP.data_parallel(mesh,
+                                                           shd.data_axes))
     data = shd.data_axes
     accum = perf.accum_steps
     pspecs = param_specs(cfg, psds, multi_pod)
@@ -386,7 +397,7 @@ def _mesh_train_step(cfg, mesh, perf, opt_cfg, multi_pod, dtype, dev,
                 else Partial()
         return pl
 
-    def grads(params, batch):
+    def grads(params, batch, with_aux=False):
         params = place(params, pnamed)
         batch = {k: _rows(_to(v, dev), mesh, batch_specs[k], data)
                  for k, v in batch.items()}
@@ -394,8 +405,8 @@ def _mesh_train_step(cfg, mesh, perf, opt_cfg, multi_pod, dtype, dev,
             local = gather(params)
         else:
             local = gather(params, "model", layout)
-        gsum, losses = _micro_grads(local, tree.leaves(local), batch, accum,
-                                    cfg, shd, lperf)
+        gsum, losses, auxes = _micro_grads(local, tree.leaves(local), batch,
+                                           accum, cfg, shd, lperf)
         del local
         with torch.no_grad():
             shards = []
@@ -415,7 +426,9 @@ def _mesh_train_step(cfg, mesh, perf, opt_cfg, multi_pod, dtype, dev,
                                       partial_pl, run_check=False)
             loss = loss.full_tensor() / n_data
         it = iter(shards)
-        return tree.map_(lambda _: next(it), params), loss
+        out = tree.map_(lambda _: next(it), params), loss
+        # the aux loss is the whole batch's on every rank
+        return out + (torch.stack(auxes).mean(),) if with_aux else out
 
     def train_step(params, opt, batch):
         params = place(params, pnamed)

@@ -36,19 +36,23 @@ class Sharder:
     The reference constrains activation layouts with these hooks and
     lets XLA split the compute.  The port writes the split out: ``tp``
     is the tensor-parallel context (``parallel.tensor_parallel.
-    TensorParallel``) of a dense or encdec step on a mesh whose
-    ``model`` axis has more than one rank, ``None`` otherwise.  With it
-    the attention, MLP, embedding, head and loss run on the rank's heads,
-    ``d_ff`` columns and vocabulary rows, the decode caches on its
-    sequence slots; without it a rank runs the whole model on its batch
-    rows (replicated over ``model``).  The hooks return their argument:
-    the layouts they name are what ``tp`` computes.
+    TensorParallel``) of a step on a mesh whose ``model`` axis has more
+    than one rank, ``None`` otherwise.  With it the attention (GQA or
+    MLA), MLP, experts, Mamba layers, embedding, head and loss run on the
+    rank's heads, ``d_ff`` columns, experts, ``d_inner`` channels and
+    vocabulary rows, the decode caches on its sequence slots; without it
+    a rank runs the whole model on its batch rows.  The hooks return
+    their argument: the layouts they name are what ``tp`` computes.
+    ``dp`` (``tensor_parallel.DataParallel``) is a train step's data
+    axes where they have several ranks: the MoE load-balance loss takes
+    its means over the whole batch through it.
     """
     mesh: Any = None
     data_axes: Any = "data"
     model_axes: Any = "model"
     seq_axes: Any = None          # defaults to model_axes
     tp: Any = None
+    dp: Any = None
 
     def __post_init__(self):
         if self.seq_axes is None:
@@ -164,16 +168,18 @@ def swiglu_init(gen: torch.Generator, d: int, d_ff: int,
     }
 
 
-def swiglu(params: dict, x: torch.Tensor, shd: Sharder = NOSHARD
-           ) -> torch.Tensor:
+def swiglu(params: dict, x: torch.Tensor, shd: Sharder = NOSHARD,
+           reduce: bool = True) -> torch.Tensor:
     """Column-parallel gate and up, row-parallel down: under tensor
     parallelism the weights are the rank's ``d_ff`` columns (rows of
-    ``w_down``) and the partial outputs sum over ``model``."""
+    ``w_down``) and the partial outputs sum over ``model`` (or, without
+    ``reduce``, are returned as this rank's partial sum)."""
     x = copy_to_model(x, shd.tp)
     g = shd.btf(x @ params["w_gate"])
     u = shd.btf(x @ params["w_up"])
     h = F.silu(g) * u
-    return shd.btd(reduce_from_model(h @ params["w_down"], shd.tp))
+    y = h @ params["w_down"]
+    return shd.btd(reduce_from_model(y, shd.tp) if reduce else y)
 
 
 def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int,

@@ -22,8 +22,9 @@ the hybrid's shared block, whisper's encoder, decoder and cross
 attention) goes through the flash kernel, whose gradient is the backward
 kernel; MLA's attention stays plain PyTorch (``models/mla.py``).
 
-Under tensor parallelism (``Sharder.tp``: the dense and encdec families
-on a mesh whose ``model`` axis has several ranks) each rank holds its
+Under tensor parallelism (``Sharder.tp``: a mesh whose ``model`` axis
+has several ranks) each block runs on the rank's heads, ``d_ff``
+columns, experts or ``d_inner`` channels, and each rank holds its
 vocabulary rows of ``embed`` and columns of ``lm_head``: the embedding
 sums the ranks' lookups, ``forward`` returns the rank's vocabulary
 columns of the logits, and ``loss_fn`` reduces the cross-entropy's max
@@ -59,7 +60,7 @@ class PerfConfig:
     picks how a train step on a ``DeviceMesh`` splits its batch
     (``launch.steps.make_sharder``: ``"fsdp"`` over the whole mesh, with
     compute replicated over ``model``; ``"2d"`` over the data axes, with
-    the dense and encdec families' compute split over ``model``).
+    the compute split over ``model``).
     ``scan_layers`` is accepted and changes nothing (the port loops over
     layers in Python either way)."""
     remat: str = "full"                # none | full | dots | dots_nb

@@ -12,12 +12,14 @@ without TF32 (``layers.f32_matmul``), as ``model.forward`` does.
 Decode contract: one new token per sequence and a shared position ``pos``
 (a Python int).
 
-Under tensor parallelism (``Sharder.tp``, the dense and encdec families)
-``prefill`` and ``decode_step`` return the rank's vocabulary columns of
-the logits, [B, vocab_p / m] (the reference's ``P(data, "model")``
-output); the self-attention caches hold the rank's sequence slots of
-every KV head, and whisper's ``cross_k``/``cross_v`` every head and
-frame, from which each rank reads its own heads.
+Under tensor parallelism (``Sharder.tp``) ``prefill`` and
+``decode_step`` return the rank's vocabulary columns of the logits,
+[B, vocab_p / m] (the reference's ``P(data, "model")`` output); the
+self-attention caches hold the rank's sequence slots of every KV head,
+MLA's ``c_kv``/``k_rope`` the rank's sequence slots, a Mamba layer's
+``conv``/``h`` the cache's ``seq`` ranks' channels of ``d_inner``, and
+whisper's ``cross_k``/``cross_v`` every head and frame, from which each
+rank reads its own heads.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
                 dtype=torch.float32, kv_quant: bool = False,
                 device=None, shd: Sharder = NOSHARD) -> dict:
     """Every family's caches, zeroed; under tensor parallelism (``shd.
-    tp``) the attention caches hold the rank's sequence slots."""
+    tp``) the rank's shards (module docstring)."""
     def attn_cache(quantized=False):
         return attn_mod.init_cache(cfg, batch, max_seq, dtype,
                                    quantized=quantized, device=device,
@@ -52,13 +54,13 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
     if cfg.family == "dense":
         return {"layers": _stack(attn_cache(kv_quant), cfg.n_layers)}
     if cfg.family == "moe":
-        one = mla_mod.init_cache(cfg, batch, max_seq, dtype, device)
+        one = mla_mod.init_cache(cfg, batch, max_seq, dtype, device, shd)
         nd = cfg.moe.first_dense
         return {"dense_layers": _stack(one, nd),
                 "layers": _stack(one, cfg.n_layers - nd)}
     if cfg.family in ("ssm", "hybrid"):
-        c = {"layers": _stack(ssm_mod.init_state(cfg, batch, dtype, device),
-                              cfg.n_layers)}
+        c = {"layers": _stack(ssm_mod.init_state(cfg, batch, dtype, device,
+                                                 shd), cfg.n_layers)}
         if cfg.family == "hybrid":
             c["shared"] = _stack(attn_cache(), n_segments(cfg))
         return c
@@ -146,16 +148,10 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig,
 
 
 def _ssm_prefill_block(lp, x, cfg, shd, state: dict):
-    """Run the ssm block over the prompt; write its final conv window (the
-    last d_conv - 1 pre-conv activations) and scan state into ``state``.
-    The reference recomputes the state after the block; the port keeps
-    the block's own scan's last state, the same values."""
-    k = cfg.ssm.d_conv - 1
-    xn = _norm(x, lp["ln"], cfg)
-    y, h = ssm_mod.ssm_scan(lp["ssm"], xn, cfg, shd)
-    state["conv"].copy_(xn[:, -k:] @ lp["ssm"]["in_proj_x"])
-    state["h"].copy_(h)
-    return x + y
+    """Run the ssm block over the prompt, its decode state written into
+    ``state`` (``ssm.ssm_prefill``)."""
+    return x + ssm_mod.ssm_prefill(lp["ssm"], _norm(x, lp["ln"], cfg), cfg,
+                                   shd, state)
 
 
 def _hybrid_prefill(params, x, positions, caches, cfg, shd, perf):

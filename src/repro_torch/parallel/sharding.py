@@ -21,10 +21,10 @@ several mesh axes gets ``Shard(d)`` on each of them (the first named the
 major), and a mesh axis the spec does not name gets ``Replicate()``.
 The specs decide storage.  The step builders (``launch/steps.py``)
 split the batch over the data axes and gather each weight over them
-(:func:`gather` with ``keep="model"``): a dense or encdec step keeps its
-``model`` shard and computes tensor-parallel
-(``parallel/tensor_parallel.py``), the other families gather the
-weights whole and run the model replicated over ``model``.
+(:func:`gather` with ``keep="model"``): a step keeps its ``model``
+shard and computes tensor-parallel (``parallel/tensor_parallel.py``);
+under ``fsdp`` it gathers the weights whole and runs the model
+replicated over ``model``.
 
 The port keeps a layer stack as a list of per-layer dicts where the
 reference stacks it on a leading axis (``tree.py``): the reference's

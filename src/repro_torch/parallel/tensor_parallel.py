@@ -33,6 +33,23 @@ weight whole over ``model`` and each rank slices what its heads need
 (:func:`layout`); its gradient is then a partial sum over ``model``
 that reduce-scatters back to the storage shard.
 
+The moe, ssm and hybrid families split the same way, as the
+reference's specs place their weights: a rank runs its ``E / m``
+experts (the router, replicated, routes every token on every rank) and
+MLA on its heads; a Mamba layer runs its ``d_inner`` channels, whose
+conv and scan do not depend on the others, and sums over ``model``
+where a product contracts ``d_inner`` (:func:`sum_over_model`).  A
+weight that the specs replicate over ``model`` but whose output feeds a
+rank's own compute (the router's weights, MLA's ``wq_a``/``wkv_a``,
+Mamba-2's ``in_proj_bc``/``in_proj_dt`` and per-head vectors) enters it
+through :func:`copy_to_model`, so its gradient is whole and equal on
+every rank.
+
+Off ``model``, a MoE train step's load-balance loss needs the means of
+the whole batch, which the data ranks split: :class:`DataParallel`
+sums them over the data axes, forward and backward
+(:func:`mean_over_data`).
+
 Every collective is one of the functional collectives' operators
 (``torch.ops._c10d_functional``, as ``DTensor`` issues them), which
 ``launch.costing.CostCounter`` counts and fake tensors pass through.
@@ -53,13 +70,19 @@ import torch
 _c10d = torch.ops._c10d_functional
 
 #: the families whose steps split their compute over ``model``
-FAMILIES = ("dense", "encdec")
+FAMILIES = ("dense", "encdec", "moe", "ssm", "hybrid")
 
 #: attention weights by how their last (columns) or first (rows)
 #: dimension splits: over the query heads, or the KV heads
 Q_COLS = ("wq", "bq")
 KV_COLS = ("wk", "wv", "bk", "bv")
 Q_ROWS = ("wo",)
+#: MLA's weights split by heads (``wq``/``wq_b``/``wkv_b`` columns,
+#: ``wo`` rows)
+MLA_HEADS = ("wq", "wq_b", "wkv_b", "wo")
+#: a Mamba layer's weights split over ``d_inner``
+SSM_CHANNELS = ("in_proj_x", "in_proj_z", "conv_w", "conv_b", "x_proj",
+                "dt_proj", "dt_bias", "A_log", "D", "norm_w", "out_proj")
 
 
 def _range(n: int, parts: int, index: int) -> tuple[int, int]:
@@ -100,6 +123,83 @@ class TensorParallel:
         """Whether the storage shards of ``wk``/``wv``/``bk``/``bv`` are
         the KV heads this rank's query heads read."""
         return self.q_local(cfg) and cfg.n_kv_heads % self.size == 0
+
+    def units(self, w: torch.Tensor, n: int, width: int, dim: int = -1,
+              local: Optional[bool] = None) -> torch.Tensor:
+        """This rank's heads (experts, Mamba-2 heads) of ``w``, whose
+        dimension ``dim`` holds ``n`` of them, ``width`` entries each:
+        ``w`` itself where it is the rank's storage shard (``local``, by
+        default where ``n`` divides by the ``model`` size), else their
+        slice of the weight gathered whole."""
+        if local is None:
+            local = n % self.size == 0
+        if local:
+            return w
+        h0, h1 = self.heads(n)
+        return w.narrow(dim, h0 * width, (h1 - h0) * width)
+
+    def ssm_units(self, cfg) -> tuple[int, int]:
+        """(the units a Mamba layer's ``d_inner`` splits in, channels a
+        unit): the channels for Mamba-1, the heads for Mamba-2, whose
+        per-head decay spans ``headdim`` channels."""
+        din = cfg.ssm.expand * cfg.d_model
+        if cfg.ssm.version == 1:
+            return din, 1
+        return din // cfg.ssm.headdim, cfg.ssm.headdim
+
+    def ssm_local(self, cfg) -> bool:
+        """Whether the storage shards of a Mamba layer's ``d_inner``
+        weights are this rank's whole units (always for Mamba-1, whose
+        unit is a channel)."""
+        return cfg.ssm.version == 1 or \
+            self.ssm_units(cfg)[0] % self.size == 0
+
+    def ssm_channels(self, w: torch.Tensor, cfg, dim: int = -1
+                     ) -> torch.Tensor:
+        """This rank's ``d_inner`` channels of a Mamba weight."""
+        n, width = self.ssm_units(cfg)
+        return self.units(w, n, width, dim, self.ssm_local(cfg))
+
+    def _same_split(self, cfg) -> bool:
+        """Whether the ``seq`` ranks' split of the Mamba state's
+        ``d_inner`` (the reference's ``ssm_state`` layout) is the
+        ``model`` ranks' compute split: the same ranks, aligned shards.
+        The same on every rank."""
+        return self.seq_size == self.size and self.seq_rank == self.rank \
+            and self.ssm_local(cfg)
+
+    def state_to_cache(self, x: torch.Tensor, dim: int, cfg
+                       ) -> torch.Tensor:
+        """A Mamba state's ``d_inner`` dimension ``dim`` from this rank's
+        compute channels to its cache slots (:meth:`slots` of
+        ``d_inner``): itself where they are the same, else gathered over
+        ``model`` and sliced (the tiny-batch layout on several data
+        ranks)."""
+        if self._same_split(cfg):
+            return x
+        n, width = self.ssm_units(cfg)
+        whole = self._gather_units(x, dim, n, width, seq=False)
+        s0, s1 = self.slots(n * width)
+        return whole.narrow(dim, s0, s1 - s0)
+
+    def state_from_cache(self, x: torch.Tensor, dim: int, cfg
+                         ) -> torch.Tensor:
+        """The inverse of :meth:`state_to_cache`: the cache slots
+        gathered over the ``seq`` ranks and this rank's compute channels
+        sliced."""
+        if self._same_split(cfg):
+            return x
+        n, width = self.ssm_units(cfg)
+        whole = self.all_gather(x, dim, n * width, seq=True)
+        h0, h1 = self.heads(n)
+        return whole.narrow(dim, h0 * width, (h1 - h0) * width)
+
+    def _gather_units(self, x, dim, n, width, seq):
+        shape = list(x.shape)
+        unit = x.reshape(shape[:dim] + [shape[dim] // width, width]
+                         + shape[dim + 1:])
+        whole = self.all_gather(unit, dim, n, seq=seq)
+        return whole.reshape(shape[:dim] + [n * width] + shape[dim + 1:])
 
     def kv_heads(self, cfg) -> tuple[int, int]:
         """The KV heads this rank's query heads read, as a range."""
@@ -171,26 +271,29 @@ class TensorParallel:
         return _c10d.wait_tensor(_c10d.all_reduce(x.contiguous(), op,
                                                   group.group_name))
 
-    def all_gather(self, x: torch.Tensor, dim: int, n: int
-                   ) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, dim: int, n: int,
+                   seq: bool = False) -> torch.Tensor:
         """The ranks' blocks of a dimension of ``n`` in ``torch.chunk``
         ranges, concatenated in rank order along ``dim``: each rank's
-        block padded to the chunk size, gathered, the padding cut."""
+        block padded to the chunk size, gathered, the padding cut.  Over
+        the ``model`` ranks, or with ``seq`` the cache's ``seq`` ranks."""
         import torch.distributed as dist
-        size = -(-n // self.size)
+        group, rank, parts = (self.seq_group, self.seq_rank, self.seq_size) \
+            if seq else (self.group, self.rank, self.size)
+        size = -(-n // parts)
         have = x.shape[dim]
         if have < size:
             pad = list(x.shape)
             pad[dim] = size - have
             x = torch.cat([x, x.new_zeros(pad)], dim=dim)
         x = x.movedim(dim, 0).contiguous()
-        if x.is_cuda and dist.get_backend(self.group) == "gloo":
-            whole = x.new_zeros((self.size * size,) + tuple(x.shape[1:]))
-            whole[self.rank * size:(self.rank + 1) * size] = x
-            out = self.all_reduce(whole)
+        if x.is_cuda and dist.get_backend(group) == "gloo":
+            whole = x.new_zeros((parts * size,) + tuple(x.shape[1:]))
+            whole[rank * size:(rank + 1) * size] = x
+            out = self.all_reduce(whole, seq=seq)
         else:
             out = _c10d.wait_tensor(_c10d.all_gather_into_tensor(
-                x, self.size, self.group.group_name))
+                x, parts, group.group_name))
         return out[:n].movedim(0, dim)
 
 
@@ -247,6 +350,18 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumBothWays(torch.autograd.Function):
+    """An all-reduce (``comm.all_reduce``) forward and backward."""
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g), None
+
+
 def copy_to_model(x: torch.Tensor, tp: Optional[TensorParallel]
                   ) -> torch.Tensor:
     """``x`` entering a column-parallel product: the identity, whose
@@ -259,6 +374,59 @@ def reduce_from_model(x: torch.Tensor, tp: Optional[TensorParallel]
     """The ranks' partial sums of a row-parallel product, summed over
     ``model``; the gradient passes through."""
     return x if tp is None else _ReduceFromModel.apply(x, tp)
+
+
+def sum_over_model(x: torch.Tensor, tp: Optional[TensorParallel]
+                   ) -> torch.Tensor:
+    """The ranks' partial sums of a product that contracts the split
+    dimension, whose whole result then feeds each rank's own compute:
+    ``copy_to_model(reduce_from_model(x))``, an all-reduce forward and
+    backward."""
+    return x if tp is None else _SumBothWays.apply(x, tp)
+
+
+# ---------------------------------------------------------------------------
+# the data axes: the MoE load-balance loss's means
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DataParallel:
+    """The data axes a train step splits its batch over: one process
+    group a mesh axis, and the product of their sizes."""
+    groups: tuple
+    size: int
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        for g in self.groups:
+            x = _c10d.wait_tensor(_c10d.all_reduce(x.contiguous(), "sum",
+                                                   g.group_name))
+        return x
+
+
+def data_parallel(mesh, data_axes) -> Optional[DataParallel]:
+    """The data axes of ``mesh`` (a name or a tuple of names), or
+    ``None`` where they have one rank."""
+    from repro_torch.parallel.sharding import axis_index
+    if data_axes is None:
+        return None
+    axes = (data_axes,) if isinstance(data_axes, str) else tuple(data_axes)
+    size = axis_index(mesh, axes)[1]
+    if size == 1:
+        return None
+    return DataParallel(groups=tuple(mesh.get_group(a) for a in axes),
+                        size=size)
+
+
+def mean_over_data(x: torch.Tensor, dp: Optional[DataParallel]
+                   ) -> torch.Tensor:
+    """The mean over the data ranks of each rank's ``x`` (a mean over
+    its equal share of the batch): the whole batch's mean.  Its gradient
+    is summed over the data ranks too, since the step averages their
+    gradients: every rank's loss holds the same term, and its gradient
+    reaches each rank's share of the batch whole."""
+    if dp is None:
+        return x
+    return _SumBothWays.apply(x, dp) / dp.size
 
 
 # ---------------------------------------------------------------------------
@@ -338,13 +506,29 @@ def greedy(logits) -> Any:
                               stride=(1, 1))
 
 
+def _aligned(cfg, keys, tp: TensorParallel) -> bool:
+    """Whether the ``model`` shard of the weight at ``keys`` holds whole
+    units of what a rank computes on: heads, experts, Mamba-2 heads."""
+    name = keys[-1]
+    if "experts" in keys:
+        return cfg.moe.n_routed % tp.size == 0
+    if "ssm" in keys and name in SSM_CHANNELS:
+        return tp.ssm_local(cfg)
+    if name in Q_COLS + Q_ROWS + MLA_HEADS:
+        return tp.q_local(cfg)
+    if name in KV_COLS:
+        return tp.kv_local(cfg)
+    return True
+
+
 def layout(cfg, params: Any, pspecs: Any, tp: Optional[TensorParallel]
            ) -> Any:
     """How a step gathers each parameter of ``params`` (specs
     ``pspecs``): ``"shard"`` keeps its ``model`` shard (this rank's
-    heads, ``d_ff`` columns or vocabulary rows), ``"whole"`` gathers it
-    over ``model`` too (an attention weight whose shards do not line up
-    with the ranks' heads), ``"replicated"`` names no ``model`` axis."""
+    heads, experts, ``d_ff`` or ``d_inner`` columns, vocabulary rows),
+    ``"whole"`` gathers it over ``model`` too (a weight whose shards do
+    not line up with the ranks' heads, experts or Mamba-2 heads),
+    ``"replicated"`` names no ``model`` axis."""
     from repro_torch.parallel.sharding import map_specs
 
     def one(keys, _, spec):
@@ -352,17 +536,13 @@ def layout(cfg, params: Any, pspecs: Any, tp: Optional[TensorParallel]
                  for a in ((e,) if isinstance(e, str) else e)]
         if "model" not in names:
             return "replicated"
-        if tp is None:
-            return "whole"
-        name = keys[-1]
-        if name in Q_COLS + Q_ROWS and not tp.q_local(cfg):
-            return "whole"
-        if name in KV_COLS and not tp.kv_local(cfg):
+        if tp is None or not _aligned(cfg, keys, tp):
             return "whole"
         return "shard"
     return map_specs(one, params, pspecs)
 
 
-__all__ = ["FAMILIES", "TensorParallel", "copy_to_model",
-           "cross_entropy", "embed", "greedy", "layout",
-           "reduce_from_model", "tensor_parallel"]
+__all__ = ["DataParallel", "FAMILIES", "TensorParallel", "copy_to_model",
+           "cross_entropy", "data_parallel", "embed", "greedy", "layout",
+           "mean_over_data", "reduce_from_model", "sum_over_model",
+           "tensor_parallel"]

@@ -203,3 +203,69 @@ def test_tensor_parallel_rank_does_its_share_of_the_products():
     layers, accum = 24, 16
     assert out["coll"]["counts"]["all-reduce"] >= 4 * layers * accum
     assert out["coll"]["all-reduce"] > 0
+
+
+_EP_SPLIT = r"""
+import dataclasses, json, sys
+import torch
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.cells import default_perf
+from repro_torch.launch.costing import ComponentCoster, step_cost
+from repro_torch.launch.mesh import make_production_mesh
+cell = SHAPES["train_4k"]
+cuts = {"deepseek-v2-lite-16b": 2, "falcon-mamba-7b": 1}
+cfgs = {a: dataclasses.replace(get_config(a), n_layers=n)
+        for a, n in cuts.items()}
+perfs = {a: dataclasses.replace(default_perf(get_config(a), cell, 16),
+                                accum_steps=1) for a in cuts}
+whole = {a: step_cost(c, cell, (torch.device("cpu"),), perfs[a]).cost
+         for a, c in cfgs.items()}
+dryrun.fake_group(256)
+mesh = make_production_mesh()
+out = {}
+for a, c in cfgs.items():
+    rank = step_cost(c, cell, mesh, perfs[a])
+    blocks = ComponentCoster(c, cell, mesh, perfs[a]).bodies()
+    out[a] = dict(whole=whole[a], rank=rank.cost, coll=rank.collectives,
+                  perf=dataclasses.asdict(perfs[a]),
+                  block_wire={k: v[0]["wire"] for k, v in blocks.items()})
+print(json.dumps(out))
+"""
+
+
+def test_moe_and_ssm_ranks_do_their_share_of_the_products():
+    """deepseek-v2-lite-16b (2 of 27 layers: the dense first and a MoE
+    one) and falcon-mamba-7b (1 of 64) ``train_4k`` on the fake 256-rank
+    group under the 2D default of ``launch.cells``, one microbatch (the
+    default 16 split the same products 16 ways): a rank's product flops
+    times 256 are the one-device step's, but for the products the
+    reference's specs replicate over ``model`` (MLA's ``wkv_a``, the
+    router), which each of the 16 ``model`` ranks runs whole for its
+    rows: 4 times a forward product (remat's second forward, two
+    backward products).
+    falcon-mamba-7b replicates none.  Every block's collectives over
+    ``model`` carry wire bytes, and no all-to-all is issued."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _EP_SPLIT], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v2-lite-16b")
+    d, m = cfg.d_model, cfg.mla
+    tokens = 256 * 4096
+    # wkv_a in both layers, the router in the MoE one
+    replicated = 4 * tokens * (2 * 2 * d * (m.kv_lora + m.qk_rope)
+                               + 2 * d * cfg.moe.n_routed)
+    for arch, extra in (("deepseek-v2-lite-16b", replicated),
+                        ("falcon-mamba-7b", 0)):
+        r = out[arch]
+        assert r["perf"]["parallelism"] == "2d"
+        whole = r["whole"]["matmul_flops"]
+        got = r["rank"]["matmul_flops"] * 256
+        assert abs(got - (whole + 15 * extra)) <= 1e-6 * whole, \
+            (arch, got / whole, (whole + 15 * extra) / whole)
+        assert all(w > 0 for w in r["block_wire"].values()), r["block_wire"]
+        assert r["coll"]["all-reduce"] > 0
+        assert r["coll"]["counts"]["all-to-all"] == 0
